@@ -11,8 +11,12 @@ A checkpoint is a directory ``step_N/`` holding
 The JAX package's ``restore`` matches leaves to its template BY POSITION,
 so `flatten` emits them in jax's flatten order: dict keys sorted, lists and
 tuples in index order. Like jax, it drops empty containers, which hold no
-leaves. `restore` rebuilds the tree from the paths alone: ``['key']``
-becomes a dict entry, ``[i]`` a list entry.
+leaves; a NamedTuple's fields are written ``.name``, as jax writes them.
+`CheckpointManager.restore` rebuilds a tree of dicts and lists from the
+paths alone (``['key']`` becomes a dict entry, ``[i]`` a list entry), or,
+given a template, puts the leaves into the template's structure by
+position, as the JAX package does, and checks paths and shapes: the only
+way back to a NamedTuple such as the optimizer state.
 """
 
 from __future__ import annotations
@@ -25,15 +29,23 @@ import shutil
 
 import numpy as np
 
+from recsys_tpu_torch.core import tree as tree_util
+
 _PATH_ITEM = re.compile(r"\[(\d+|'(?:[^'\\]|\\.)*')\]")
 
 
 def flatten(tree, prefix: str = "") -> list[tuple[str, object]]:
-    """[(jax key string, leaf)] in jax's flatten order."""
+    """[(jax key string, leaf)] in jax's flatten order; a NamedTuple's
+    fields are ``.name``, as jax writes them (``[2].mu['tables']``)."""
     if isinstance(tree, dict):
         out = []
         for k in sorted(tree):
             out += flatten(tree[k], f"{prefix}[{k!r}]")
+        return out
+    if tree_util.is_namedtuple(tree):
+        out = []
+        for name, v in zip(tree._fields, tree):
+            out += flatten(v, f"{prefix}.{name}")
         return out
     if isinstance(tree, (list, tuple)):
         out = []
@@ -83,24 +95,6 @@ def unflatten(pairs) -> list | dict:
     return lists(root)
 
 
-def fill_like(template, leaves):
-    """``template``'s structure (empty containers included) with its leaves
-    replaced, in flatten order, by ``leaves``."""
-    it = iter(leaves)
-
-    def walk(node):
-        if isinstance(node, dict):
-            return {k: walk(node[k]) for k in sorted(node)}
-        if isinstance(node, (list, tuple)):
-            return type(node)(walk(v) for v in node)
-        return next(it)
-
-    out = walk(template)
-    if next(it, None) is not None:
-        raise ValueError("more leaves than the template holds")
-    return out
-
-
 class CheckpointManager:
     """Step-indexed checkpoints with keep-last-k retention."""
 
@@ -118,8 +112,9 @@ class CheckpointManager:
                             os.path.join(self.directory, name)))
         return sorted(out)
 
-    def save(self, step: int, tree) -> str:
-        """Write ``tree`` (leaves: numpy arrays) as ``step_<step>``.
+    def save(self, step: int, tree, metric: float | None = None) -> str:
+        """Write ``tree`` (leaves: numpy arrays) as ``step_<step>``, with
+        ``metric`` (e.g. the eval AUC) in its meta.
 
         Crash-atomic: written under ``step_N.tmp`` and published with one
         rename, so a reader never sees a partial checkpoint."""
@@ -134,7 +129,7 @@ class CheckpointManager:
             manifest.append((p, f"leaf_{i}"))
         np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
         with open(os.path.join(tmp, "meta.json"), "w") as f:
-            json.dump({"step": step, "metric": None, "manifest": manifest,
+            json.dump({"step": step, "metric": metric, "manifest": manifest,
                        "extra": {}}, f)
         if os.path.exists(path):
             shutil.rmtree(path)
@@ -148,9 +143,12 @@ class CheckpointManager:
         dirs = self._step_dirs()
         return dirs[-1][0] if dirs else None
 
-    def restore(self):
+    def restore(self, template=None):
         """(tree of numpy arrays, step) of the latest checkpoint, or None
-        when there is none. The tree is rebuilt from the manifest's paths."""
+        when there is none. Without a template the tree is rebuilt from the
+        manifest's paths; with one, the leaves fill the template's structure
+        in order, and a path or shape that differs from the template's
+        raises."""
         step = self.latest_step()
         if step is None:
             return None
@@ -159,4 +157,16 @@ class CheckpointManager:
             meta = json.load(f)
         with np.load(os.path.join(path, "arrays.npz")) as z:
             pairs = [(p, z[key]) for p, key in meta["manifest"]]
-        return unflatten(pairs), meta["step"]
+        if template is None:
+            return unflatten(pairs), meta["step"]
+        want = flatten(template)
+        if len(want) != len(pairs):
+            raise ValueError(f"checkpoint has {len(pairs)} leaves, template "
+                             f"has {len(want)}")
+        for (p, leaf), (wp, wleaf) in zip(pairs, want):
+            if p != wp or tuple(np.shape(leaf)) != tuple(wleaf.shape):
+                raise ValueError(f"checkpoint leaf {p} {np.shape(leaf)} does "
+                                 f"not match template {wp} "
+                                 f"{tuple(wleaf.shape)}")
+        return tree_util.fill_like(template, [a for _, a in pairs]), \
+            meta["step"]

@@ -153,6 +153,6 @@ extern "C" int cin_layer_fwd(const void* x0_p, const void* xk_p,
   }
 }
 
-extern "C" const char* cin_error_string(int err) {
+extern "C" const char* kernel_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

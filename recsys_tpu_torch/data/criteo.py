@@ -9,11 +9,13 @@ same seed, pinned by tests/test_torch_data.py). Each example is
 
 The offline TSV preprocessor (``preprocess_tsv`` and the native parser
 behind it) belongs to the input pipeline and is not ported yet; serving
-needs only the schema and the synthetic request generator.
+and the in-device training path need the schema, the synthetic generator
+and its ``.npz`` shards.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -136,3 +138,19 @@ def synthetic_criteo(
     if _return_prob:
         out["_true_prob"] = prob
     return out
+
+
+def write_synthetic_shards(out_dir: str, num_rows: int, num_shards: int,
+                           cfg: CriteoConfig = CriteoConfig(),
+                           spec: SyntheticSpec = SyntheticSpec()) -> list[str]:
+    """``num_shards`` files ``part-r-NNNNN.npz`` of ``num_rows //
+    num_shards`` disjoint synthetic rows each (the JAX package's shards)."""
+    os.makedirs(out_dir, exist_ok=True)
+    rows_per = num_rows // num_shards
+    paths = []
+    for s in range(num_shards):
+        data = synthetic_criteo(rows_per, cfg, spec, start_row=s * rows_per)
+        path = os.path.join(out_dir, f"part-r-{s:05d}.npz")
+        np.savez(path, **data)
+        paths.append(path)
+    return paths

@@ -1,10 +1,11 @@
 """Embedding engine: how a [B, F] id batch becomes the model's embedding
 parts (counterpart of ``recsys_tpu/embeddings/engines.py``).
 
-Only ``SplitEngine``'s inference lookup is ported. Fields are partitioned
-by vocab size: *small* fields (vocab ≤ ``threshold``) share one packed
-table, *big* fields (the hash-capped vocabs) another. Both are row-major
-``[V_pad, D+1]`` and both are read with a plain row gather.
+Only ``SplitEngine`` is ported. Fields are partitioned by vocab size:
+*small* fields (vocab ≤ ``threshold``) share one packed table, *big* fields
+(the hash-capped vocabs) another. Both are row-major ``[V_pad, D+1]`` and
+both are read with `table.table_gather`, in training as in inference: two
+gathers per step, whose backward is two segment sums.
 
 The JAX engine's training path turns the small-field lookup into a one-hot
 matmul and stores the big table transposed; both exist for the TPU's
@@ -16,7 +17,8 @@ indexed in that order.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import threading
+from dataclasses import dataclass, field
 from typing import NamedTuple
 
 import numpy as np
@@ -57,6 +59,13 @@ class EmbParts(NamedTuple):
 class SplitEngine:
     cfg: EmbeddingConfig
     threshold: int = SPLIT_THRESHOLD
+    #: per device: the (fields, offsets) index tensors of each part, built
+    #: once so that a lookup sends nothing from the host
+    _consts: dict = field(default_factory=dict, init=False, repr=False,
+                          compare=False)
+    _consts_lock: threading.Lock = field(default_factory=threading.Lock,
+                                         init=False, repr=False,
+                                         compare=False)
 
     def _partition(self) -> tuple[list[int], list[int]]:
         sizes = self.cfg.field_vocab_sizes
@@ -88,32 +97,43 @@ class SplitEngine:
         params["b"] = torch.zeros((), dtype=torch.float32, device=device)
         return params
 
-    def _rows(self, table: torch.Tensor, ids: torch.Tensor,
-              fields: list[int]) -> torch.Tensor:
-        """[B, F_part, D+1] rows of ``fields`` from their packed table."""
-        offsets = emb_table.field_offsets(self._sizes(fields))
-        sub = ids[:, torch.as_tensor(fields, device=ids.device)]
-        gids = sub + torch.as_tensor(offsets, dtype=sub.dtype,
-                                     device=ids.device)
-        return emb_table.table_gather(table, gids)
+    def _index_tensors(self, device) -> list[tuple[str, int, torch.Tensor,
+                                                   torch.Tensor]]:
+        """[(part name, field count, fields [F_part], offsets [F_part])] on
+        ``device``, for the parts that have fields."""
+        device = torch.device(device)
+        with self._consts_lock:
+            consts = self._consts.get(device)
+            if consts is None:
+                consts = []
+                for name, fields in zip(("small", "big"), self._partition()):
+                    if fields:
+                        offsets = emb_table.field_offsets(self._sizes(fields))
+                        consts.append((
+                            name, len(fields),
+                            torch.as_tensor(fields, dtype=torch.int64,
+                                            device=device),
+                            torch.as_tensor(offsets, dtype=torch.int64,
+                                            device=device)))
+                self._consts[device] = consts
+            return consts
 
     def lookup_parts(self, params, ids: torch.Tensor,
                      train: bool = False) -> EmbParts:
-        """Inference lookup; ``ids`` are [B, F] int64 field-local ids."""
-        if train:
-            raise NotImplementedError(
-                "the training lookup (and its backward) is not ported yet")
-        small, big = self._partition()
+        """Lookup of [B, F] int64 field-local ids. Training and inference
+        take the same path (``train`` is accepted for the JAX signature):
+        the gathers are differentiable in the tables."""
+        del train
         d = self.cfg.embedding_dim
         b = ids.shape[0]
         emb_parts, wide_parts = [], []
-        for name, fields in (("small", small), ("big", big)):
-            if fields:
-                rows = self._rows(params[name], ids, fields)
-                emb_parts.append(rows[:, :, :d].reshape(b, len(fields) * d))
-                wide_parts.append(rows[:, :, d])
+        for name, nf, fields, offsets in self._index_tensors(ids.device):
+            gids = ids.index_select(1, fields) + offsets
+            rows = emb_table.table_gather(params[name], gids)
+            emb_parts.append(rows[:, :, :d].reshape(b, nf * d))
+            wide_parts.append(rows[:, :, d])
         emb_2d = torch.cat(emb_parts, dim=1)
-        emb_3d = emb_2d.reshape(b, len(small) + len(big), d)
+        emb_3d = emb_2d.reshape(b, -1, d)
         return EmbParts(
             emb_2d=emb_2d,
             wide=torch.cat(wide_parts, dim=1),

@@ -4,7 +4,8 @@
 All fields of a table live in ONE row-major ``[V_pad, D+1]`` matrix: columns
 ``0..D-1`` are the embedding, column ``D`` the wide/linear weight, and a
 batch of field-local ids is shifted by static per-field offsets into global
-row ids and fetched with one gather.
+row ids and fetched with one gather, whose backward is the segment sum of
+``ops/segment_sum.py``.
 
 ``V_pad`` stays a multiple of 1024, as in the JAX package, so a converted
 JAX table and a port table have the same shape. The JAX package stores its
@@ -19,7 +20,7 @@ import numpy as np
 import torch
 
 from recsys_tpu_torch.core.config import EmbeddingConfig
-from recsys_tpu_torch.ops import nn
+from recsys_tpu_torch.ops import nn, segment_sum
 
 #: Row-count multiple of every packed table (the JAX package's TILE_V).
 ROW_MULTIPLE = 1024
@@ -47,8 +48,26 @@ def fused_init(gen: torch.Generator, cfg: EmbeddingConfig,
     return torch.cat([emb, wide], dim=1)
 
 
+class _TableGather(torch.autograd.Function):
+    """Forward ``index_select``; backward the dense ``[V, W]`` table
+    gradient from `segment_sum` (the CUDA kernel on the card). The table is
+    row-major, so the gradient lands in the storage layout as it is."""
+
+    @staticmethod
+    def forward(ctx, table, flat_ids):
+        ctx.save_for_backward(flat_ids)
+        ctx.num_rows = table.shape[0]
+        return torch.index_select(table, 0, flat_ids)
+
+    @staticmethod
+    def backward(ctx, d_rows):
+        (flat_ids,) = ctx.saved_tensors
+        return segment_sum.segment_sum(flat_ids, d_rows.contiguous(),
+                                       ctx.num_rows), None
+
+
 def table_gather(table: torch.Tensor, gids: torch.Tensor) -> torch.Tensor:
-    """Row-major gather: ``[V, W]`` table + global ids of any shape →
-    rows ``[*gids.shape, W]``."""
-    rows = torch.index_select(table, 0, gids.reshape(-1))
+    """Row-major gather: ``[V, W]`` table + int64 global ids of any shape →
+    rows ``[*gids.shape, W]``, differentiable in the table."""
+    rows = _TableGather.apply(table, gids.reshape(-1))
     return rows.reshape(*gids.shape, table.shape[1])

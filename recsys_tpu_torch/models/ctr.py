@@ -1,8 +1,9 @@
 """Criteo CTR models (counterpart of ``recsys_tpu/models/ctr.py``).
 
-Only xDeepFM is ported; the rest of the zoo follows. Parameter trees keep
-the JAX package's structure and ENGINE field order, so a converted JAX tree
-gives the same logits (tests/test_torch_xdeepfm.py).
+DeepFM and xDeepFM are ported; the rest of the zoo follows. Parameter trees
+keep the JAX package's structure and ENGINE field order, so a converted JAX
+tree gives the same logits and gradients (tests/test_torch_xdeepfm.py,
+tests/test_torch_train.py).
 """
 
 from __future__ import annotations
@@ -41,6 +42,49 @@ class _CriteoBase:
 
 
 # ---------------------------------------------------------------------------
+# DeepFM — deepfm/deepfm.py:73-150 (README Criteo config: DNN 100,100)
+# ---------------------------------------------------------------------------
+
+@register("deepfm")
+def make_deepfm(criteo: CriteoConfig = CriteoConfig(),
+                cfg: ModelConfig = ModelConfig(name="deepfm")) -> Model:
+    """DeepFM: wide + FM second order + DNN over one embedding space.
+
+    y_1d = relu(Σ wide weights + the tables' shared bias); y_2d = the FM
+    identity over the field sums; y_dnn = relu(dense(MLP tower over the flat
+    embeddings)), the first dense layer taking the engine's parts (list
+    form); logits = dense(concat(y_1d, y_2d, y_dnn)).
+    """
+    base = _CriteoBase(criteo, cfg)
+    flat_dim = base.num_fields * cfg.embedding_dim
+
+    def init(gen: torch.Generator, device):
+        params = base.init_fused(gen, device)
+        mlp_p, mlp_s = nn.mlp_init(gen, flat_dim, cfg.deep_layers, cfg.use_bn,
+                                   device)
+        params["dnn"] = mlp_p
+        params["dnn_out"] = nn.dense_init(gen, cfg.deep_layers[-1], 1, device)
+        params["final"] = nn.dense_init(gen, 3, 1, device)
+        return params, {"dnn": mlp_s}
+
+    def apply(params, state, batch, *, train=False, gen=None):
+        parts = base.lookup_parts(params, batch, train=train)
+        y_1d = torch.relu(parts.wide.sum(dim=1, keepdim=True)
+                          + params["tables"]["b"])
+        y_2d = interactions.fm_pairwise_from_sums(parts.emb_sum,
+                                                  parts.emb_sq_sum)
+        h, dnn_s = nn.mlp_apply(params["dnn"], state["dnn"],
+                                parts.emb_parts, train=train,
+                                dropout_rate=cfg.dropout, gen=gen)
+        y_dnn = nn.dense(params["dnn_out"], h, activation=torch.relu)
+        logits = nn.dense(params["final"],
+                          torch.cat([y_1d, y_2d, y_dnn], dim=-1))
+        return _squeeze_logits(logits), {"dnn": dnn_s}
+
+    return Model("deepfm", init, apply)
+
+
+# ---------------------------------------------------------------------------
 # xDeepFM — xdeepfm/xdeepfm.py:123-233
 # ---------------------------------------------------------------------------
 
@@ -72,13 +116,16 @@ def make_xdeepfm(criteo: CriteoConfig = CriteoConfig(),
         return params, {"dnn": mlp_s}
 
     # engine-order positions of the categorical fields (original index
-    # ≥ n_cont) — static subset of parts.wide
+    # ≥ n_cont) — static subset of parts.wide, one copy per device
     cat_pos = np.where(base.engine.field_order >= n_cont)[0]
+    cat_pos_on: dict = {}
 
     def apply(params, state, batch, *, train=False, gen=None):
         parts = base.lookup_parts(params, batch, train=train)
-        wide_cat = parts.wide[:, torch.as_tensor(cat_pos,
-                                                 device=parts.wide.device)]
+        dev = parts.wide.device
+        if dev not in cat_pos_on:
+            cat_pos_on[dev] = torch.as_tensor(cat_pos, device=dev)
+        wide_cat = parts.wide.index_select(1, cat_pos_on[dev])
         lin = (nn.dense(params["lin_dense"], batch["dense"])
                + wide_cat.sum(dim=1, keepdim=True))
         linear_y = torch.relu(lin)

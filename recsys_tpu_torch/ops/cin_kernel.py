@@ -1,116 +1,92 @@
-"""Fused CIN layer: the hand-written CUDA kernel, its wrapper and its plain
-version (counterpart of ``recsys_tpu/ops/pallas_cin.py``, forward only).
+"""Fused CIN layer: the hand-written CUDA kernels (forward and backward),
+their wrappers and their plain versions (counterpart of
+``recsys_tpu/ops/pallas_cin.py``).
 
 One CIN layer maps feature maps in the embedding-dim-fused layout of
 `interactions.cin_apply` — x0v [N=B·D, F0] and xkv [N, Fk] — to
 
     y = relu(z @ w + b),   z[n, p·Fk+q] = x0v[n, p] · xkv[n, q]
 
-with w [F0·Fk, H] and b [H]. The CUDA kernel (``csrc/cin_layer.cu``, whose
-header says what bounds it on the H100 and how its design answers) forms z
-in registers and never writes it to memory; the plain version materializes
-z and calls one matmul.
+with w [F0·Fk, H] and b [H]. The forward kernel (``csrc/cin_layer.cu``)
+forms z in registers and never writes it to memory; the backward kernel
+(``csrc/cin_backward.cu``) recomputes z the same way and returns dx0, dxk,
+dW and db (each source's header says what bounds it on the H100 and how its
+design answers). The plain versions materialize z and use matmuls.
 
-The kernel is compiled with ``nvcc`` for ``sm_90a`` at first use, into
-``recsys_tpu_torch/_build/`` under a name keyed by the source's hash, and is
-loaded with ctypes. ``cin_layer`` launches it for CUDA tensors (or raises);
-it takes the plain version only for tensors on the CPU.
+`cin_layer` is a ``torch.autograd.Function``: forward `cin_layer_fwd`,
+backward `cin_layer_bwd`, as the JAX package pairs the two Pallas kernels
+through ``jax.custom_vjp``. Both wrappers launch their kernel for CUDA
+tensors (or raise) and take the plain version only for tensors on the CPU.
+The kernels are built at first use (`cuda_build`).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 import threading
 
 import torch
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "cin_layer.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
-MAX_H = 32   # accumulators per thread (csrc/cin_layer.cu instantiates 1..32)
+from recsys_tpu_torch.ops import cuda_build
 
-#: Kernel launches made by `cin_layer` (a plain count; read it to show that a
-#: run went through the kernel, reset it by assigning 0).
+SOURCE = cuda_build.source("cin_layer.cu")
+BWD_SOURCE = cuda_build.source("cin_backward.cu")
+MAX_H = 32   # accumulators per thread (both sources instantiate H = 1..32)
+_DW_TILE = 32          # rows per shared tile of the dW pass (cin_backward.cu)
+_DW_GROUP_ROWS = 512   # rows per dW partial sum, up to _DW_MAX_GROUPS groups
+_DW_MAX_GROUPS = 256
+
+#: Forward kernel launches made by `cin_layer_fwd`, and backward kernel
+#: launches made by `cin_layer_bwd` (plain counts; read them to show that a
+#: run went through the kernels, reset them by assigning 0).
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 _count_lock = threading.Lock()
-_lib_lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
 
 
-def _nvcc() -> str:
-    """nvcc of $CUDA_HOME, else the one on $PATH, else /usr/local/cuda's."""
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    for cand in ((os.path.join(home, "bin", "nvcc") if home else None),
-                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("no CUDA toolkit found (set CUDA_HOME); nvcc is "
-                       "needed to build " + SOURCE)
+def _fwd_lib() -> ctypes.CDLL:
+    lib = cuda_build.load(SOURCE)
+    if lib.cin_layer_fwd.argtypes is None:
+        lib.cin_layer_fwd.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        lib.cin_layer_fwd.restype = ctypes.c_int
+    return lib
 
 
-def library_path() -> str:
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"libcin_layer_{digest}.so")
-
-
-def build() -> str:
-    """Compile the kernel unless a library of this source exists; → path.
-    The compiler's report (``-Xptxas -v``: registers, shared memory and
-    spills of each instantiation) is kept beside it as ``<path>.log``."""
-    path = library_path()
-    if os.path.exists(path):
-        return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
-           "-o", tmp, SOURCE]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        with open(path + ".log", "w") as f:
-            f.write(proc.stdout + proc.stderr)
-        os.replace(tmp, path)   # atomic publish: readers see all or nothing
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return path
-
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
-            lib.cin_layer_fwd.argtypes = (
-                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-            lib.cin_layer_fwd.restype = ctypes.c_int
-            lib.cin_error_string.argtypes = [ctypes.c_int]
-            lib.cin_error_string.restype = ctypes.c_char_p
-            _lib = lib
-        return _lib
+def _bwd_lib() -> ctypes.CDLL:
+    lib = cuda_build.load(BWD_SOURCE)
+    if lib.cin_layer_bwd.argtypes is None:
+        lib.cin_layer_bwd.argtypes = (
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        lib.cin_layer_bwd.restype = ctypes.c_int
+    return lib
 
 
 def cin_layer_reference(x0v: torch.Tensor, xkv: torch.Tensor,
                         w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The plain version: materialize z, one matmul."""
+    """The plain forward: materialize z, one matmul."""
     n, f0 = x0v.shape
     fk = xkv.shape[1]
     z = (x0v[:, :, None] * xkv[:, None, :]).reshape(n, f0 * fk)
     return torch.relu(z @ w + b)
 
 
-def _check(x0v, xkv, w, b) -> None:
-    tensors = {"x0v": x0v, "xkv": xkv, "w": w, "b": b}
+def cin_layer_backward_reference(x0v, xkv, w, y, dy):
+    """The plain backward → (dx0, dxk, dw, db): materialize z and dz."""
+    n, f0 = x0v.shape
+    fk = xkv.shape[1]
+    g = dy * (y > 0)
+    dz = (g @ w.t()).reshape(n, f0, fk)
+    dx0 = (dz * xkv[:, None, :]).sum(dim=2)
+    dxk = (dz * x0v[:, :, None]).sum(dim=1)
+    z = (x0v[:, :, None] * xkv[:, None, :]).reshape(n, f0 * fk)
+    return dx0, dxk, z.t() @ g, g.sum(dim=0)
+
+
+def _check(x0v, xkv, w, **others) -> None:
+    """Raise on what the kernels do not take; ``others`` are b [H] (the
+    forward) or y and dy [N, H] (the backward)."""
+    tensors = {"x0v": x0v, "xkv": xkv, "w": w, **others}
     for name, t in tensors.items():
         if t.dtype != torch.float32:
             raise TypeError(f"cin_layer: {name} is {t.dtype}, want float32")
@@ -119,31 +95,37 @@ def _check(x0v, xkv, w, b) -> None:
         if t.device != x0v.device:
             raise ValueError(f"cin_layer: {name} is on {t.device}, x0v on "
                              f"{x0v.device}")
-    if x0v.dim() != 2 or xkv.dim() != 2 or w.dim() != 2 or b.dim() != 1:
+    if x0v.dim() != 2 or xkv.dim() != 2 or w.dim() != 2:
         raise ValueError("cin_layer: want x0v [N, F0], xkv [N, Fk], "
-                         "w [F0·Fk, H], b [H]")
+                         "w [F0·Fk, H]")
     n, f0 = x0v.shape
     fk = xkv.shape[1]
     h = w.shape[1]
-    if xkv.shape[0] != n or w.shape[0] != f0 * fk or b.shape[0] != h:
+    want = {"b": (h,), "y": (n, h), "dy": (n, h)}
+    if xkv.shape[0] != n or w.shape[0] != f0 * fk or any(
+            tuple(t.shape) != want[k] for k, t in others.items()):
         raise ValueError(
             f"cin_layer: shapes x0v {tuple(x0v.shape)}, xkv "
-            f"{tuple(xkv.shape)}, w {tuple(w.shape)}, b {tuple(b.shape)} "
-            "do not agree")
+            f"{tuple(xkv.shape)}, w {tuple(w.shape)}, "
+            + ", ".join(f"{k} {tuple(t.shape)}" for k, t in others.items())
+            + " do not agree")
     if not 1 <= h <= MAX_H:
         raise ValueError(f"cin_layer: H={h} outside 1..{MAX_H}")
-    if n * max(f0, fk) >= 2 ** 31:
+    if n * max(f0, fk, h) >= 2 ** 31:
         raise ValueError(f"cin_layer: N={n} rows overflow 32-bit indexing")
 
 
-def cin_layer(x0v: torch.Tensor, xkv: torch.Tensor, w: torch.Tensor,
-              b: torch.Tensor) -> torch.Tensor:
-    """One CIN layer relu(outer(x0v, xkv) @ w + b) → [N, H], float32.
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
 
-    CUDA tensors go through the kernel; the call raises if it cannot launch.
-    CPU tensors go through `cin_layer_reference`."""
+
+def cin_layer_fwd(x0v: torch.Tensor, xkv: torch.Tensor, w: torch.Tensor,
+                  b: torch.Tensor) -> torch.Tensor:
+    """One CIN layer forward relu(outer(x0v, xkv) @ w + b) → [N, H] float32,
+    outside autograd. CUDA tensors go through the kernel (the call raises if
+    it cannot launch); CPU tensors through `cin_layer_reference`."""
     global LAUNCHES
-    _check(x0v, xkv, w, b)
+    _check(x0v, xkv, w, b=b)
     if x0v.device.type == "cpu":
         return cin_layer_reference(x0v, xkv, w, b)
     if x0v.device.type != "cuda":
@@ -153,25 +135,91 @@ def cin_layer(x0v: torch.Tensor, xkv: torch.Tensor, w: torch.Tensor,
     y = torch.empty((n, h), dtype=torch.float32, device=x0v.device)
     if n == 0:
         return y
-    lib = _load()
+    lib = _fwd_lib()
     with torch.cuda.device(x0v.device):
-        stream = torch.cuda.current_stream(x0v.device).cuda_stream
         err = lib.cin_layer_fwd(x0v.data_ptr(), xkv.data_ptr(), w.data_ptr(),
                                 b.data_ptr(), y.data_ptr(), n, f0, fk, h,
-                                stream)
-    if err != 0:
-        raise RuntimeError(f"cin_layer_fwd launch failed: error {err} "
-                           f"({lib.cin_error_string(err).decode()})")
+                                _stream(x0v.device))
+    cuda_build.check(lib, err, "cin_layer_fwd")
     with _count_lock:
         LAUNCHES += 1
     return y
+
+
+def _dw_groups(n: int) -> tuple[int, int]:
+    """(groups, rows per group) of the dW pass's partial sums: a function of
+    N alone, so the summation order and the result are fixed for a shape."""
+    target = min(_DW_MAX_GROUPS, -(-n // _DW_GROUP_ROWS))
+    rows = -(-(-(-n // target)) // _DW_TILE) * _DW_TILE
+    return -(-n // rows), rows
+
+
+def cin_layer_bwd(x0v: torch.Tensor, xkv: torch.Tensor, w: torch.Tensor,
+                  y: torch.Tensor, dy: torch.Tensor):
+    """One CIN layer backward from the forward's inputs, its output ``y``
+    (the ReLU mask) and the output gradient ``dy`` → (dx0, dxk, dw, db).
+    CUDA tensors go through the kernel (the call raises if it cannot
+    launch); CPU tensors through `cin_layer_backward_reference`."""
+    global BWD_LAUNCHES
+    _check(x0v, xkv, w, y=y, dy=dy)
+    n, f0 = x0v.shape
+    fk, h = xkv.shape[1], w.shape[1]
+    if x0v.device.type == "cpu":
+        return cin_layer_backward_reference(x0v, xkv, w, y, dy)
+    if x0v.device.type != "cuda":
+        raise ValueError(f"cin_layer: no kernel for device {x0v.device}")
+    dev = x0v.device
+    dx0 = torch.empty((n, f0), dtype=torch.float32, device=dev)
+    dxk = torch.empty((n, fk), dtype=torch.float32, device=dev)
+    if n == 0:
+        return dx0, dxk, torch.zeros_like(w), torch.zeros(h, device=dev)
+    dw = torch.empty_like(w)
+    db = torch.empty((h,), dtype=torch.float32, device=dev)
+    groups, rows = _dw_groups(n)
+    part = torch.empty((groups, f0 * fk + 1, h), dtype=torch.float32,
+                       device=dev)
+    lib = _bwd_lib()
+    with torch.cuda.device(dev):
+        err = lib.cin_layer_bwd(
+            x0v.data_ptr(), xkv.data_ptr(), w.data_ptr(), y.data_ptr(),
+            dy.data_ptr(), dx0.data_ptr(), dxk.data_ptr(), part.data_ptr(),
+            dw.data_ptr(), db.data_ptr(), n, f0, fk, h, groups, rows,
+            _stream(dev))
+    cuda_build.check(lib, err, "cin_layer_bwd")
+    with _count_lock:
+        BWD_LAUNCHES += 1
+    return dx0, dxk, dw, db
+
+
+class _CinLayer(torch.autograd.Function):
+    """Forward `cin_layer_fwd`; backward `cin_layer_bwd` from the saved
+    inputs and ReLU output (``pallas_cin._cin_layer_fwd``/``_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x0v, xkv, w, b):
+        y = cin_layer_fwd(x0v, xkv, w, b)
+        ctx.save_for_backward(x0v, xkv, w, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x0v, xkv, w, y = ctx.saved_tensors
+        return cin_layer_bwd(x0v, xkv, w, y, dy.contiguous())
+
+
+def cin_layer(x0v: torch.Tensor, xkv: torch.Tensor, w: torch.Tensor,
+              b: torch.Tensor) -> torch.Tensor:
+    """One differentiable CIN layer relu(outer(x0v, xkv) @ w + b) → [N, H],
+    float32: `cin_layer_fwd` forward, `cin_layer_bwd` backward."""
+    return _CinLayer.apply(x0v, xkv, w, b)
 
 
 def cin_apply_fused(params, x0: torch.Tensor) -> torch.Tensor:
     """CIN forward through `cin_layer` → pooled concat [B, Σ_k H_k].
 
     Same layout as `interactions.cin_apply`: x0 [B, F0, D] becomes
-    x0v [B·D, F0], each layer's [B·D, H] output is sum-pooled over D."""
+    x0v [B·D, F0], each layer's [B·D, H] output is sum-pooled over D. x0v
+    feeds every layer, so autograd sums its gradient over the layers."""
     b, f0, d = x0.shape
     x0v = x0.transpose(1, 2).reshape(b * d, f0).contiguous()
     xkv = x0v

@@ -1,0 +1,115 @@
+"""Builds and loads the port's hand-written CUDA kernels.
+
+Each source under ``recsys_tpu_torch/csrc/`` has a plain C interface. It is
+compiled with ``nvcc`` for ``sm_90a`` at first use, into
+``recsys_tpu_torch/_build/`` under a name keyed by the source's hash, and
+loaded with ctypes. Nothing is built when a module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def source(name: str) -> str:
+    """Path of ``csrc/<name>``."""
+    return os.path.join(CSRC, name)
+
+
+def _nvcc() -> str:
+    """nvcc of $CUDA_HOME, else the one on $PATH, else /usr/local/cuda's."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ((os.path.join(home, "bin", "nvcc") if home else None),
+                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("no CUDA toolkit found (set CUDA_HOME); nvcc is "
+                       f"needed to build the kernels in {CSRC}")
+
+
+def library_path(src: str) -> str:
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    stem = os.path.splitext(os.path.basename(src))[0]
+    return os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
+
+
+def _command(src: str, out: str) -> list[str]:
+    return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+            "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+            "-o", out, src]
+
+
+def build_all(sources: list[str]) -> list[str]:
+    """Compile every source that has no library yet, one ``nvcc`` each, all
+    started together; → library paths in the order given. The compiler's
+    report (``-Xptxas -v``: registers, shared memory and spills of each
+    kernel) is kept beside each library as ``<path>.log``."""
+    paths = [library_path(s) for s in sources]
+    todo = [(s, p) for s, p in zip(sources, paths) if not os.path.exists(p)]
+    if not todo:
+        return paths
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    jobs = []
+    try:
+        for src, path in todo:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = _command(src, tmp)
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            jobs.append((cmd, proc, tmp, path))
+        failed = []
+        for cmd, proc, tmp, path in jobs:
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n"
+                              f"{' '.join(cmd)}\n{log}")
+                continue
+            with open(path + ".log", "w") as f:
+                f.write(log)
+            os.replace(tmp, path)  # atomic publish: readers see all or nothing
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    finally:
+        for _, proc, tmp, _ in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    return paths
+
+
+def load(src: str) -> ctypes.CDLL:
+    """The library of ``src``, built if needed and loaded once per process.
+    Every library exports ``const char* kernel_error_string(int)``."""
+    with _lock:
+        lib = _libs.get(src)
+        if lib is None:
+            lib = ctypes.CDLL(build_all([src])[0])
+            lib.kernel_error_string.argtypes = [ctypes.c_int]
+            lib.kernel_error_string.restype = ctypes.c_char_p
+            _libs[src] = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error (its launch was
+    refused: too many threads, too much shared memory, bad arguments)."""
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: error {err} "
+                           f"({lib.kernel_error_string(err).decode()})")

@@ -20,6 +20,7 @@ import torch
 
 from recsys_tpu_torch import convert
 from recsys_tpu_torch.core import checkpoint
+from recsys_tpu_torch.core import tree as tree_util
 from recsys_tpu_torch.core.config import CriteoConfig, ModelConfig
 from recsys_tpu_torch.models.api import make_model
 from recsys_tpu_torch.train.train_state import make_predict_step
@@ -113,7 +114,7 @@ class Servable:
         # shapes only: the meta device allocates and draws nothing
         template = list(self.model.init(torch.Generator(), "meta"))
         loaded = convert.convert_params(tree, self.device)
-        self.params, self.model_state = checkpoint.fill_like(
+        self.params, self.model_state = tree_util.fill_like(
             template, _check_like(template, loaded))
         self._vocab = np.asarray(self.criteo_cfg.field_vocab_sizes)
         self._predict = make_predict_step(self.model)

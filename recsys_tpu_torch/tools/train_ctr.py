@@ -1,74 +1,177 @@
 """CTR command line (counterpart of ``recsys_tpu/tools/train_ctr.py``).
 
-Only the ``serve`` task is ported:
-
+    python -m recsys_tpu_torch.tools.train_ctr train --model.name=deepfm \
+        --train.batch_size=16384 --train.num_steps=2000 --device=cuda \
+        [--data_dir=DIR | --synthetic_rows=N] [--train.model_dir=DIR]
     python -m recsys_tpu_torch.tools.train_ctr serve --export_dir=./export \
         --device=cuda --port=8500
 
-loads the servable (exported by either package) on ``--device`` (``cuda``
-or ``cpu``; ``cuda`` without a card fails), answers one warm-up request,
-and serves REST on 127.0.0.1 (``--port=0`` binds a free port and logs it).
-The tasks ``train``, ``eval``, ``predict`` and ``export`` are not ported
-yet.
+``train`` runs the in-device path (`loop.train_and_evaluate_fast`) on
+``--device`` (``cuda`` or ``cpu``; ``cuda`` without a card fails): the
+``part-r-*.npz`` shards of ``--data_dir`` (by default synthetic shards of
+``--synthetic_rows`` rows written to ``./synthetic_criteo``), the last
+tenth of the shards held out for eval, periodic eval and checkpoints under
+``--train.model_dir``. Every ``--section.key=value`` of the run config is
+accepted, as in the JAX package. A training set over the device budget
+(``--hbm_data_budget`` bytes, 4 GiB by default) or ``--streaming`` needs
+the streaming input pipeline, which is not ported yet: the command exits.
+
+``serve`` loads the servable (exported by either package) on ``--device``,
+answers one warm-up request, and serves REST on 127.0.0.1 (``--port=0``
+binds a free port and logs it).
+
+The tasks ``eval``, ``predict`` and ``export`` are not ported yet.
 """
 
 from __future__ import annotations
 
 import gc
+import glob
 import logging
+import os
 import sys
 
+import numpy as np
+
 _TASKS = ("train", "eval", "predict", "export", "serve")
-_FLAGS = ("export_dir", "port", "device")
+_FLAT = ("data_dir", "export_dir", "port", "device", "synthetic_rows",
+         "hbm_data_budget")
+_SERVE_FLAGS = ("export_dir", "port", "device")
+
+log = logging.getLogger("recsys_tpu_torch")
 
 
-def _parse(argv: list[str]) -> tuple[str, dict[str, str]]:
+def _parse(argv: list[str]):
+    """→ (task, flat flags, ``--section.key=value`` overrides, streaming)."""
     task = argv[0] if argv and not argv[0].startswith("--") else "train"
-    kv = {}
+    flat, overrides, streaming = {}, [], False
     for a in argv[1 if argv and argv[0] == task else 0:]:
+        if a == "--streaming":
+            streaming = True
+            continue
         key, eq, value = a[2:].partition("=")
-        if not a.startswith("--") or not eq or key not in _FLAGS:
+        if not a.startswith("--") or not eq or (
+                "." not in key and key not in _FLAT):
             raise SystemExit(f"unsupported argument {a!r}; the port takes "
-                             f"--{'=, --'.join(_FLAGS)}=")
-        kv[key] = value
-    return task, kv
+                             f"--section.key=value, --streaming and "
+                             f"--{'=, --'.join(_FLAT)}=")
+        if "." in key:
+            overrides.append(a)
+        else:
+            flat[key] = value
+    return task, flat, overrides, streaming
 
 
-def main(argv: list[str] | None = None) -> None:
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(name)s %(message)s")
-    task, kv = _parse(sys.argv[1:] if argv is None else argv)
-    if task not in _TASKS:
-        raise SystemExit(f"unknown task {task}")
-    if task != "serve":
-        raise SystemExit(f"task {task!r} is not ported yet; the PyTorch "
-                         "port serves only (task 'serve')")
+def _device(name: str):
     import torch
 
-    from recsys_tpu_torch.serve.export import Servable
-    from recsys_tpu_torch.serve.server import make_rest_server
-
+    if name not in ("cuda", "cpu"):
+        raise SystemExit(f"--device={name}: want cuda or cpu")
+    if name == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device=cuda: torch.cuda.is_available() is False")
     # the dense layers' float32 matmuls in full float32, as on the CPU
     # (PyTorch's default, set explicitly: TF32 keeps ~3 decimal digits)
     torch.backends.cuda.matmul.allow_tf32 = False
-    device = kv.get("device", "cuda")
-    if device not in ("cuda", "cpu"):
-        raise SystemExit(f"--device={device}: want cuda or cpu")
-    sv = Servable(kv.get("export_dir", "./export"), device=device)
+    return torch.device(name)
+
+
+def _serve(kv: dict) -> None:
+    from recsys_tpu_torch.serve.export import Servable
+    from recsys_tpu_torch.serve.server import make_rest_server
+
+    device = _device(kv.get("device", "cuda"))
+    sv = Servable(kv.get("export_dir", "./export"), device=device.type)
     sv.warmup()
     # the long-lived objects (parameters, the kernel library) are final:
     # collect once and keep them out of later collections' scans
     gc.collect()
     gc.freeze()
     rest, batcher = make_rest_server(sv, int(kv.get("port", 8500)))
-    logging.getLogger("recsys_tpu_torch").info(
-        "serving %s on %s at REST:%d", sv.model_name, device,
-        rest.server_address[1])
+    log.info("serving %s on %s at REST:%d", sv.model_name, device.type,
+             rest.server_address[1])
     try:
         rest.serve_forever()
     finally:
         rest.server_close()
         batcher.stop()
+
+
+def _load_all(paths: list[str]) -> dict[str, np.ndarray]:
+    parts = []
+    for p in paths:
+        with np.load(p) as z:
+            parts.append(dict(z))
+    return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+
+def _train(cfg, kv: dict, streaming: bool) -> dict:
+    from recsys_tpu_torch.data import criteo
+    from recsys_tpu_torch.models.api import make_model
+    from recsys_tpu_torch.train import loop
+
+    device = _device(kv.get("device", "cuda"))
+    if streaming:
+        raise SystemExit("streaming input is not ported yet")
+    try:
+        model = make_model(cfg.model.name, cfg.criteo, cfg.model)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+
+    data_dir = kv.get("data_dir")
+    if data_dir:
+        shard_paths = sorted(glob.glob(f"{data_dir}/part-r-*.npz"))
+    else:
+        data_dir = "./synthetic_criteo"
+        shard_paths = sorted(glob.glob(f"{data_dir}/part-r-*.npz"))
+        if not shard_paths:
+            shard_paths = criteo.write_synthetic_shards(
+                data_dir, int(kv.get("synthetic_rows", 2_000_000)), 20,
+                cfg.criteo)
+    if len(shard_paths) < 2:
+        raise SystemExit(f"{data_dir}: want at least 2 part-r-*.npz shards "
+                         "(one for eval)")
+    n_eval = max(1, len(shard_paths) // 10)
+    train_paths, eval_paths = shard_paths[:-n_eval], shard_paths[-n_eval:]
+    budget = int(kv.get("hbm_data_budget", 4 << 30))
+    if sum(os.path.getsize(p) for p in train_paths) >= budget:
+        raise SystemExit(f"training set over the device budget ({budget} "
+                         "bytes): streaming input is not ported yet")
+    train_data = _load_all(train_paths)
+    num_steps = cfg.train.num_steps
+    if num_steps < 0:
+        num_steps = (cfg.train.num_epochs * len(train_data["label"])
+                     // cfg.train.batch_size)
+    metrics = loop.train_and_evaluate_fast(
+        model, train_data, _load_all(eval_paths), cfg.train,
+        num_steps=num_steps, device=device)
+    print(metrics, flush=True)
+    return metrics
+
+
+def main(argv: list[str] | None = None) -> dict:
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(name)s %(message)s")
+    task, kv, overrides, streaming = _parse(
+        sys.argv[1:] if argv is None else argv)
+    if task not in _TASKS:
+        raise SystemExit(f"unknown task {task}")
+    if task == "serve":
+        extra = sorted(set(kv) - set(_SERVE_FLAGS)) + overrides
+        if extra or streaming:
+            raise SystemExit(f"serve takes --{'=, --'.join(_SERVE_FLAGS)}=, "
+                             f"not {extra or '--streaming'}")
+        _serve(kv)
+        return {}
+    if task != "train":
+        raise SystemExit(f"task {task!r} is not ported yet; the PyTorch "
+                         "port trains and serves (tasks 'train', 'serve')")
+    from recsys_tpu_torch.core.config import RunConfig, apply_overrides
+
+    try:
+        cfg = apply_overrides(RunConfig(), overrides)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+    return _train(cfg, kv, streaming)
 
 
 if __name__ == "__main__":

@@ -1,14 +1,103 @@
-"""Step factories (counterpart of ``recsys_tpu/train/train_state.py``).
+"""Train state and step factories (counterpart of
+``recsys_tpu/train/train_state.py``).
 
-Only the predict step is ported; the train and eval steps come with the
-training path.
+One train step is the model's forward in train mode, the mean sigmoid
+cross-entropy, ``torch.autograd.grad`` over every parameter (the embedding
+tables' gradients come from `table.table_gather`'s backward, the segment-sum
+kernel on the card), and the in-place TF-parity Adam update of
+`optim.adam`. Parameters are plain tensors that do not require grad between
+steps: each step differentiates through detached aliases of them, so eval
+and serving never build a graph.
 """
 
 from __future__ import annotations
 
+from typing import Any, NamedTuple
+
 import torch
 
+from recsys_tpu_torch.core import tree as tree_util
 from recsys_tpu_torch.models.api import Model
+from recsys_tpu_torch.train import metrics as M
+from recsys_tpu_torch.train import optim
+
+
+class TrainState(NamedTuple):
+    params: Any
+    model_state: Any          # BN moving stats
+    opt_state: Any
+    step: torch.Tensor        # int32 scalar on the training device
+    rng: torch.Generator      # dropout and batch-index draws, on that device
+
+
+def make_generator(seed: int, device) -> torch.Generator:
+    """A generator on ``device``: on the card it draws there, so dropout
+    masks and batch indices never cross from the host."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen
+
+
+def sigmoid_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Numerically stable mean sigmoid cross-entropy
+    (``tf.nn.sigmoid_cross_entropy_with_logits`` parity)."""
+    return M.sigmoid_ce_per_example(logits, labels.to(torch.float32)).mean()
+
+
+def create_train_state(model: Model, seed: int, learning_rate: float,
+                       device="cpu",
+                       opt: optim.Optimizer | None = None):
+    """(TrainState, optimizer): parameters drawn from a CPU generator seeded
+    with ``seed`` (the same values on any device), then moved to
+    ``device``; the state's generator lives on ``device``."""
+    params, model_state = model.init(torch.Generator().manual_seed(seed),
+                                     device)
+    tx = opt if opt is not None else optim.adam(learning_rate)
+    return TrainState(params, model_state, tx.init(params),
+                      torch.zeros((), dtype=torch.int32, device=device),
+                      make_generator(seed + 1, device)), tx
+
+
+def loss_and_grads(model: Model, params, model_state, batch,
+                   gen: torch.Generator | None = None):
+    """(loss, new model state, gradient tree) of the train-mode loss, the
+    gradients shaped like ``params`` (zeros for unused leaves, as
+    ``jax.grad`` gives). Differentiates through detached aliases, so
+    ``params`` need not (and should not) require grad."""
+    live = [p.detach().requires_grad_() for p in tree_util.leaves(params)]
+    logits, new_ms = model.apply(tree_util.fill_like(params, live),
+                                 model_state, batch, train=True, gen=gen)
+    loss = sigmoid_ce(logits, batch["label"])
+    grads = torch.autograd.grad(loss, live, allow_unused=True,
+                                materialize_grads=True)
+    return (loss.detach(), tree_util.tree_map(torch.Tensor.detach, new_ms),
+            tree_util.fill_like(params, grads))
+
+
+def make_train_step(model: Model, tx: optim.Optimizer):
+    """``step(ts, batch) -> (ts, loss)``. The parameters and the optimizer
+    state of ``ts`` are updated in place; the loss stays on the device."""
+
+    def step(ts: TrainState, batch):
+        loss, new_ms, grads = loss_and_grads(model, ts.params,
+                                             ts.model_state, batch, ts.rng)
+        tx.update(grads, ts.opt_state, ts.params)
+        return ts._replace(model_state=new_ms, step=ts.step + 1), loss
+
+    return step
+
+
+def make_eval_step(model: Model):
+    """``eval_step(params, model_state, metric_state, batch) ->
+    metric_state``: the eval-mode forward and the streaming-metric update,
+    on the device."""
+
+    @torch.no_grad()
+    def eval_step(params, model_state, metric_state, batch):
+        logits, _ = model.apply(params, model_state, batch, train=False)
+        return M.update_binary_metrics(metric_state, logits, batch["label"])
+
+    return eval_step
 
 
 def make_predict_step(model: Model):

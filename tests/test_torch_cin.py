@@ -117,3 +117,56 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     torch.testing.assert_close(
         out, cin_kernel.cin_layer_reference(x0v, x0v, w, b), rtol=0, atol=0)
     assert cin_kernel.LAUNCHES == 0
+
+
+@pytest.mark.parametrize("n,fk,h", [(300, 20, 10), (37, 39, 5), (256, 10, 3)])
+def test_cin_backward_matches_pallas_backward(n, fk, h):
+    """The plain backward against K3b (``pallas_cin._bwd_impl``) in
+    interpret mode, from the same forward output and output gradient."""
+    rng = np.random.default_rng(n + fk)
+    f0 = 39
+    x0v = rng.standard_normal((n, f0)).astype(np.float32)
+    xkv = rng.standard_normal((n, fk)).astype(np.float32)
+    layer = _params(rng, f0, (fk, h))[1]
+    dy = rng.standard_normal((n, h)).astype(np.float32)
+    y = cin_kernel.cin_layer_reference(
+        torch.from_numpy(x0v), torch.from_numpy(xkv),
+        torch.from_numpy(layer["w"]), torch.from_numpy(layer["b"]))
+    assert 0 < float((y > 0).float().mean()) < 1   # the mask matters
+    got = cin_kernel.cin_layer_bwd(
+        torch.from_numpy(x0v), torch.from_numpy(xkv),
+        torch.from_numpy(layer["w"]), y, torch.from_numpy(dy))
+    ref = pallas_cin._bwd_impl(jnp.asarray(x0v), jnp.asarray(xkv),
+                               jnp.asarray(layer["w"]), jnp.asarray(y.numpy()),
+                               jnp.asarray(dy))
+    for name, g, r in zip(("dx0", "dxk", "dw", "db"), got, ref):
+        assert tuple(g.shape) == r.shape, name
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), err_msg=name,
+                                   rtol=1e-5, atol=5e-5)
+
+
+@pytest.mark.parametrize("layer_sizes", [(5, 3), (20, 10, 10)])
+def test_cin_apply_gradients_match_jax(layer_sizes):
+    """Autograd through the port's `cin_layer` Function (plain versions on
+    the CPU) against ``jax.grad`` of the XLA formulation ``cin_apply_xla``;
+    x0 feeds every layer, so its gradient sums over the layers."""
+    b, f0, d = 6, 39, 4
+    rng = np.random.default_rng(len(layer_sizes))
+    params = _params(rng, f0, layer_sizes)
+    x0 = rng.standard_normal((b, f0, d)).astype(np.float32)
+    wts = rng.standard_normal((b, sum(layer_sizes))).astype(np.float32)
+    jp, jx, tp, tx = _both(params, x0)
+
+    def jloss(p, x):
+        return jnp.sum(jinter.cin_apply_xla(p, x) * wts)
+
+    jgp, jgx = jax.grad(jloss, argnums=(0, 1))(jp, jx)
+    tp = [{k: v.requires_grad_() for k, v in layer.items()} for layer in tp]
+    tx.requires_grad_()
+    (tinter.cin_apply(tp, tx) * torch.from_numpy(wts)).sum().backward()
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jgx), **TOL)
+    for tl, jl in zip(tp, jgp):
+        for k in ("w", "b"):
+            np.testing.assert_allclose(tl[k].grad.numpy(), np.asarray(jl[k]),
+                                       rtol=1e-5, atol=5e-5, err_msg=k)
+    assert cin_kernel.BWD_LAUNCHES == 0   # CPU tensors: the plain backward

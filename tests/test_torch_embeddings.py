@@ -60,8 +60,21 @@ def test_table_shapes_match_jax():
 
 
 def test_training_lookup_not_ported():
+    """The training lookup, once not ported, is the inference lookup with
+    tables that take gradients: both tables receive them (two segment sums
+    per step), in the storage layout."""
     eng = engines.SplitEngine(EmbeddingConfig(VOCABS, 4))
     params = eng.init(torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError):
-        eng.lookup_parts(params, torch.zeros((2, len(VOCABS)), dtype=torch.long),
-                         train=True)
+    ids = torch.from_numpy(np.stack(
+        [np.random.default_rng(f).integers(0, v, 9) for f, v in
+         enumerate(VOCABS)], 1))
+    live = {k: v.clone().requires_grad_() for k, v in params.items()}
+    got = eng.lookup_parts(live, ids, train=True)
+    want = eng.lookup_parts(params, ids, train=False)
+    torch.testing.assert_close(got.emb_2d, want.emb_2d, rtol=0, atol=0)
+    (got.emb_2d.sum() + got.wide.sum()).backward()
+    for name, fields in zip(("small", "big"), eng._partition()):
+        g = live[name].grad
+        assert g is not None and g.shape == params[name].shape, name
+        # every looked-up row takes 1 per use in each of its D+1 columns
+        assert float(g.sum()) == ids.shape[0] * len(fields) * 5, name

@@ -1,24 +1,30 @@
-"""The port on the card: the CUDA CIN kernel against its plain version at
-the shapes of full-width xDeepFM, and a servable on the card against the
-same servable on the CPU. Every test here is marked ``gpu`` and skips
-without a CUDA device (the kernel has no CPU mode). This file imports
+"""The port on the card: the CUDA kernels (CIN forward and backward,
+segment sum) against their plain versions at the shapes of full-width
+xDeepFM and DeepFM, autograd through them, a servable on the card against
+the same servable on the CPU, and three training steps on the card against
+the same steps on the CPU. Every test here is marked ``gpu`` and skips
+without a CUDA device (the kernels have no CPU mode). This file imports
 neither jax nor the JAX package, so it also runs where jax is absent:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 
-Tolerance 1e-4 absolute and relative: float32 sums of up to 1521 terms,
-taken in another order than cuBLAS takes them.
+Tolerance 1e-4 absolute and relative unless a test says otherwise: float32
+sums of up to 1521 terms, taken in another order than cuBLAS takes them.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from recsys_tpu_torch.core import tree as tree_util
 from recsys_tpu_torch.core.config import CriteoConfig, ModelConfig
 from recsys_tpu_torch.data.criteo import synthetic_criteo
 from recsys_tpu_torch.models.api import make_model
 from recsys_tpu_torch.ops import cin_kernel
+from recsys_tpu_torch.ops import segment_sum as ss
 from recsys_tpu_torch.serve.export import Servable, export_servable
+from recsys_tpu_torch.train import fast
+from recsys_tpu_torch.train import train_state as TS
 
 pytestmark = pytest.mark.gpu
 
@@ -70,3 +76,126 @@ def test_servable_on_the_card_matches_the_cpu(cuda_device, tmp_path):
     assert cin_kernel.LAUNCHES == before + 3
     ref = Servable(str(tmp_path), device="cpu").predict(feats)
     np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("n", [16, 3333, 16 * 4096])
+@pytest.mark.parametrize("fk,h", [(39, 20), (20, 10), (10, 10)])
+def test_backward_kernel_matches_plain_version(cuda_device, n, fk, h):
+    gen = torch.Generator().manual_seed(n + fk + 1)
+    x0v = torch.randn(n, 39, generator=gen).to(cuda_device)
+    xkv = torch.randn(n, fk, generator=gen).to(cuda_device)
+    w = (0.05 * torch.randn(39 * fk, h, generator=gen)).to(cuda_device)
+    b = torch.randn(h, generator=gen).to(cuda_device)
+    y = cin_kernel.cin_layer_reference(x0v, xkv, w, b)
+    dy = torch.randn(n, h, generator=gen).to(cuda_device)
+    before = cin_kernel.BWD_LAUNCHES
+    got = cin_kernel.cin_layer_bwd(x0v, xkv, w, y, dy)
+    torch.cuda.synchronize()
+    assert cin_kernel.BWD_LAUNCHES == before + 1
+    ref = cin_kernel.cin_layer_backward_reference(x0v, xkv, w, y, dy)
+    # dW and db are sums over all N rows: the tolerance grows with them
+    tol = 1e-4 * max(1.0, n / 1024)
+    for name, g, r in zip(("dx0", "dxk", "dw", "db"), got, ref):
+        torch.testing.assert_close(g, r, rtol=1e-4, atol=tol, msg=name)
+    again = cin_kernel.cin_layer_bwd(x0v, xkv, w, y, dy)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)            # deterministic: no atomics
+
+
+def test_cin_apply_trains_through_the_kernels(cuda_device):
+    """``cin_apply`` on the card is differentiable (it was not: the forward
+    kernel's output had no grad_fn), and its gradients match those of the
+    plain version on the same tensors."""
+    gen = torch.Generator().manual_seed(5)
+    x0 = torch.randn(64, 39, 16, generator=gen).to(cuda_device)
+    params = []
+    fk = 39
+    for h in (20, 10, 10):
+        params.append({"w": (0.05 * torch.randn(39 * fk, h, generator=gen)
+                             ).to(cuda_device),
+                       "b": torch.randn(h, generator=gen).to(cuda_device)})
+        fk = h
+    wts = torch.randn(64, 40, generator=gen).to(cuda_device)
+
+    def grads(layer_fn):
+        p = [{k: v.clone().requires_grad_() for k, v in l.items()}
+             for l in params]
+        x = x0.clone().requires_grad_()
+        x0v = x.transpose(1, 2).reshape(-1, 39).contiguous()
+        xkv, pooled = x0v, []
+        for l in p:
+            xkv = layer_fn(x0v, xkv, l["w"], l["b"])
+            pooled.append(xkv.reshape(64, 16, -1).sum(dim=1))
+        out = torch.cat(pooled, dim=1)
+        assert out.grad_fn is not None
+        (out * wts).sum().backward()
+        return [x.grad] + [l[k].grad for l in p for k in ("w", "b")]
+
+    fwd, bwd = cin_kernel.LAUNCHES, cin_kernel.BWD_LAUNCHES
+    got = grads(cin_kernel.cin_layer)
+    assert cin_kernel.LAUNCHES == fwd + 3
+    assert cin_kernel.BWD_LAUNCHES == bwd + 3
+    ref = grads(cin_kernel.cin_layer_reference)
+    for g, r in zip(got, ref):
+        assert float(g.abs().max()) > 0
+        torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("n,v", [(229_376, 837_632), (409_600, 4096),
+                                 (3333, 1000), (1, 5)])
+def test_segment_sum_kernel_matches_plain_version(cuda_device, n, v):
+    gen = torch.Generator().manual_seed(n)
+    # zipf-like ids: hot rows with long segments, as the Criteo fields give
+    u = torch.rand(n, generator=gen)
+    ids = (v * u ** 2.2).long().clamp_(max=v - 1).to(cuda_device)
+    g = torch.randn(n, 17, generator=gen).to(cuda_device)
+    before = ss.LAUNCHES
+    got = ss.segment_sum(ids, g, v)
+    torch.cuda.synchronize()
+    assert ss.LAUNCHES == before + 1
+    torch.testing.assert_close(got, ss.segment_sum_reference(ids, g, v),
+                               rtol=1e-5, atol=1e-3)
+    assert torch.equal(got, ss.segment_sum(ids, g, v))   # bitwise
+
+
+def test_segment_sum_kernel_edge_cases(cuda_device):
+    g = torch.randn(5000, 17, device=cuda_device)
+    one = torch.full((5000,), 7, dtype=torch.int64, device=cuda_device)
+    got = ss.segment_sum(one, g, 10)
+    torch.testing.assert_close(got, ss.segment_sum_reference(one, g, 10),
+                               rtol=1e-5, atol=1e-3)
+    assert not got[torch.arange(10, device=cuda_device) != 7].any()
+    empty = ss.segment_sum(one[:0], g[:0], 10)
+    assert empty.shape == (10, 17) and not empty.any()
+    wide = torch.randn(300, 70, device=cuda_device)     # W > 32
+    ids = torch.randint(0, 40, (300,), device=cuda_device)
+    torch.testing.assert_close(ss.segment_sum(ids, wide, 40),
+                               ss.segment_sum_reference(ids, wide, 40),
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["deepfm", "xdeepfm"])
+def test_three_train_steps_on_the_card_match_the_cpu(cuda_device, name):
+    """3 optimizer steps from one state on one [3, B] index matrix, at
+    dropout 0, on the card (kernels) and on the CPU (plain versions).
+    Tolerance 1e-4 on the parameters: a tenth of one Adam step (lr 1e-3)."""
+    ccfg = CriteoConfig(cat_vocabs=(50,) * 20 + (3000,) * 6)
+    mcfg = ModelConfig(name=name, embedding_dim=8, deep_layers=(32, 32),
+                       cin_layers=(20, 10, 10), dropout=0.0)
+    model = make_model(name, ccfg, mcfg)
+    data = synthetic_criteo(4096, ccfg)
+    idx = np.random.default_rng(0).integers(0, 4096, (3, 512))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        ts, tx = TS.create_train_state(model, 0, 1e-3, dev)
+        counts = (ss.LAUNCHES, cin_kernel.BWD_LAUNCHES)
+        ts, loss = fast.make_scanned_train_step(model, tx)(
+            ts, fast.stage_dataset(data, dev), idx)
+        out[str(dev)] = (float(loss), ts.params)
+    assert ss.LAUNCHES - counts[0] == 6
+    assert cin_kernel.BWD_LAUNCHES - counts[1] == (9 if name == "xdeepfm"
+                                                   else 0)
+    (l_cpu, p_cpu), (l_gpu, p_gpu) = out["cpu"], out["cuda"]
+    assert abs(l_cpu - l_gpu) <= 1e-5 * abs(l_cpu)
+    for a, b in zip(tree_util.leaves(p_cpu), tree_util.leaves(p_gpu)):
+        torch.testing.assert_close(b.cpu(), a, rtol=0, atol=1e-4)

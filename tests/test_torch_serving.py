@@ -19,6 +19,7 @@ from recsys_tpu.models.api import make_model as jmake
 from recsys_tpu.serve import export as jexport
 from recsys_tpu_torch import convert
 from recsys_tpu_torch.core import checkpoint
+from recsys_tpu_torch.core import tree as tree_util
 from recsys_tpu_torch.core.config import CriteoConfig, ModelConfig
 from recsys_tpu_torch.serve import client, export, server
 from recsys_tpu_torch.tools import train_ctr
@@ -150,7 +151,7 @@ def test_checkpoint_paths_follow_jax():
     back = checkpoint.unflatten(ours)
     assert [p for p, _ in checkpoint.flatten(back)] == [p for p, _ in ours]
     # the empty BN-less layer has no leaves; fill_like restores it
-    filled = checkpoint.fill_like(tree, [a for _, a in ours])
+    filled = tree_util.fill_like(tree, [a for _, a in ours])
     assert filled[1]["dnn"]["layers"][1] == {}
 
 
