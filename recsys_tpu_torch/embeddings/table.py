@@ -4,8 +4,10 @@
 All fields of a table live in ONE row-major ``[V_pad, D+1]`` matrix: columns
 ``0..D-1`` are the embedding, column ``D`` the wide/linear weight, and a
 batch of field-local ids is shifted by static per-field offsets into global
-row ids and fetched with one gather, whose backward is the segment sum of
-``ops/segment_sum.py``.
+row ids and fetched with one gather. `table_gather` is every table read of
+the port (the Criteo engine's and DIN's): its forward is the row gather of
+``ops/row_gather.py``, its backward the segment sum of
+``ops/segment_sum.py``; on the card both are hand-written CUDA kernels.
 
 ``V_pad`` stays a multiple of 1024, as in the JAX package, so a converted
 JAX table and a port table have the same shape. The JAX package stores its
@@ -20,7 +22,7 @@ import numpy as np
 import torch
 
 from recsys_tpu_torch.core.config import EmbeddingConfig
-from recsys_tpu_torch.ops import nn, segment_sum
+from recsys_tpu_torch.ops import nn, row_gather, segment_sum
 
 #: Row-count multiple of every packed table (the JAX package's TILE_V).
 ROW_MULTIPLE = 1024
@@ -49,15 +51,16 @@ def fused_init(gen: torch.Generator, cfg: EmbeddingConfig,
 
 
 class _TableGather(torch.autograd.Function):
-    """Forward ``index_select``; backward the dense ``[V, W]`` table
-    gradient from `segment_sum` (the CUDA kernel on the card). The table is
+    """Forward the rows from `row_gather.row_gather`; backward the dense
+    ``[V, W]`` table gradient from `segment_sum.segment_sum` (on the card
+    each is a CUDA kernel, on the CPU its plain version). The table is
     row-major, so the gradient lands in the storage layout as it is."""
 
     @staticmethod
     def forward(ctx, table, flat_ids):
         ctx.save_for_backward(flat_ids)
         ctx.num_rows = table.shape[0]
-        return torch.index_select(table, 0, flat_ids)
+        return row_gather.row_gather(table, flat_ids)
 
     @staticmethod
     def backward(ctx, d_rows):

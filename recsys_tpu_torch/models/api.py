@@ -9,13 +9,16 @@ of plain functions bound to a config.
   structure (``convert.py`` maps one onto the other).
 - ``state``: non-trainable tree (batch-norm moving stats).
 - ``batch``: {'ids': int64 [B, F] field-local ids,
-              'dense': float32 [B, 13] log-scaled continuous values}.
+              'dense': float32 [B, 13] log-scaled continuous values} for
+  the Criteo models; DIN's is in ``models/din.py``.
 - ``logits``: float32 [B].
+- ``meta``: static facts other modules need (DIN's ``sample_features``,
+  the serving warm-up's request generator).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable
 
 
@@ -24,6 +27,7 @@ class Model:
     name: str
     init: Callable[..., tuple[Any, Any]]
     apply: Callable[..., tuple[Any, Any]]
+    meta: dict = field(default_factory=dict)
 
 
 _REGISTRY: dict[str, Callable] = {}
@@ -40,6 +44,7 @@ def make_model(name: str, *args, **kwargs) -> Model:
     if name not in _REGISTRY:
         # import model modules lazily so registration happens on demand
         import recsys_tpu_torch.models.ctr  # noqa: F401
+        import recsys_tpu_torch.models.din  # noqa: F401
     if name not in _REGISTRY:
         raise ValueError(f"model {name!r} is not ported; have "
                          f"{sorted(_REGISTRY)}")

@@ -1,8 +1,9 @@
 """Interaction ops (counterpart of ``recsys_tpu/ops/interactions.py``):
-the FM pairwise term from field sums, and CIN.
+the FM pairwise term from field sums, CIN, and DIN's target attention.
 
-Shapes use B=batch, F=num fields, D=embedding dim, H=CIN feature maps.
-DCN's cross layers and DIN's attention are not ported yet.
+Shapes use B=batch, F=num fields, D=embedding dim, H=CIN feature maps,
+P=padded history length, K=DIN embedding dim. DCN's cross layers are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -48,3 +49,45 @@ def cin_apply(params, x0: torch.Tensor) -> torch.Tensor:
     through `cin_kernel.cin_layer`: the CUDA kernel for tensors on the card,
     the plain version for tensors on the CPU."""
     return cin_kernel.cin_apply_fused(params, x0)
+
+
+# ---------------------------------------------------------------------------
+# DIN target attention (din/din.py:103-125)
+# ---------------------------------------------------------------------------
+
+def din_attention_init(gen: torch.Generator, emb_dim: int,
+                       attention_layers: tuple[int, ...], device,
+                       dtype=torch.float32) -> dict:
+    """{'mlp': [dense per hidden layer], 'out': dense → 1}; the MLP's input
+    is the 4K-wide [hist, query, hist⊙query, hist−query]."""
+    params: dict = {"mlp": []}
+    d = 4 * emb_dim
+    for h in attention_layers:
+        params["mlp"].append(nn.dense_init(gen, d, h, device, dtype))
+        d = h
+    params["out"] = nn.dense_init(gen, d, 1, device, dtype)
+    return params
+
+
+def din_attention(params, hist_emb: torch.Tensor, hist_ids: torch.Tensor,
+                  query_emb: torch.Tensor, *, train: bool = False,
+                  dropout_rate: float = 0.0,
+                  gen: torch.Generator | None = None) -> torch.Tensor:
+    """Per-position attention MLP over [hist, query, hist⊙query, hist−query]
+    on the flattened [B·P, 4K] rows (dropout after each hidden layer in
+    train mode), then the weighted sum over the history with padded
+    positions (``hist_ids == 0``) masked out → [B, K].
+
+    hist_emb [B, P, K], hist_ids [B, P], query_emb [B, K]. A padded
+    position adds exactly zero, so padding P further leaves the result
+    unchanged."""
+    b, p, k = hist_emb.shape
+    query = query_emb[:, None, :].expand(b, p, k)
+    h = torch.cat([hist_emb, query, hist_emb * query, hist_emb - query],
+                  dim=-1).reshape(b * p, 4 * k)
+    for layer in params["mlp"]:
+        h = nn.dense(layer, h, activation=torch.relu)
+        h = nn.dropout(h, dropout_rate, train, gen)
+    wgt = nn.dense(params["out"], h).reshape(b, p, 1)
+    mask = (hist_ids > 0).to(hist_emb.dtype)[:, :, None]
+    return (hist_emb * wgt * mask).sum(dim=1)

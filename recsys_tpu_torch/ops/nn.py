@@ -51,6 +51,16 @@ def glorot_uniform(gen: torch.Generator, shape, device,
     return x.to(device)
 
 
+def glorot_normal(gen: torch.Generator, shape, device,
+                  dtype=torch.float32) -> torch.Tensor:
+    """N(0, 2/(fan_in + fan_out)), not truncated (the JAX package's
+    ``glorot_normal``; DIN's tables)."""
+    fan_in, fan_out = shape[0], shape[-1]
+    std = (2.0 / (fan_in + fan_out)) ** 0.5
+    x = _host_empty(shape, device, dtype).normal_(0.0, std, generator=gen)
+    return x.to(device)
+
+
 def truncated_normal(gen: torch.Generator, shape, stddev: float, device,
                      dtype=torch.float32) -> torch.Tensor:
     """N(0, stddev²) truncated at ±2 standard deviations."""

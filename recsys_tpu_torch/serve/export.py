@@ -27,9 +27,13 @@ from recsys_tpu_torch.train.train_state import make_predict_step
 
 
 def export_servable(export_dir: str, model_name: str, params, model_state,
-                    model_cfg: ModelConfig, criteo_cfg: CriteoConfig) -> str:
+                    model_cfg: ModelConfig,
+                    criteo_cfg: CriteoConfig | None = None,
+                    factory_kwargs: dict | None = None) -> str:
     """Write port ``params``/``model_state`` as a servable in the JAX
-    layout (``convert.export_params``)."""
+    layout (``convert.export_params``). ``factory_kwargs`` go to the model
+    factory at load time (DIN's ``item_vocab``/``cate_vocab``), so the
+    rebuilt parameter shapes match the exported weights."""
     os.makedirs(export_dir, exist_ok=True)
     mgr = checkpoint.CheckpointManager(export_dir, keep_max=1)
     mgr.save(0, (convert.export_params(params),
@@ -37,8 +41,8 @@ def export_servable(export_dir: str, model_name: str, params, model_state,
     meta = {
         "model_name": model_name,
         "model_cfg": dataclasses.asdict(model_cfg),
-        "criteo_cfg": dataclasses.asdict(criteo_cfg),
-        "factory_kwargs": {},
+        "criteo_cfg": dataclasses.asdict(criteo_cfg) if criteo_cfg else None,
+        "factory_kwargs": factory_kwargs or {},
     }
     with open(os.path.join(export_dir, "servable.json"), "w") as f:
         json.dump(meta, f, indent=2, default=str)
@@ -79,17 +83,22 @@ def _check_like(template, tree) -> list:
 class Servable:
     """Loaded inference endpoint on one device.
 
-    ``device='cuda'`` needs a card and raises without one; it never falls
-    back to the CPU. On the card the CIN layers run through the CUDA kernel
-    (``ops.cin_kernel``), on the CPU through its plain version.
+    The Criteo models and DIN are ported; another model's servable raises
+    ``NotImplementedError``. ``device='cuda'`` needs a card and raises
+    without one; it never falls back to the CPU. On the card the table
+    reads run through the row-gather kernel (``ops.row_gather``) and
+    xDeepFM's CIN layers through the CIN kernel (``ops.cin_kernel``), on
+    the CPU through their plain versions. Every id of a request is checked
+    on the host against its table: one out of range is a ``ValueError``
+    (a 400 from the server) and never reaches a gather.
 
     Thread-safety contract: `predict` MUST be safe to call concurrently
     from several threads; the server's micro-batcher runs it on the
     caller's thread while its worker may run a coalesced batch. It is: the
     parameters are read-only after load, each call allocates its own
     tensors under ``torch.inference_mode()``, and the only state shared
-    between calls is the kernel's launch counter, which its wrapper updates
-    under a lock.
+    between calls is the kernels' launch counters, which their wrappers
+    update under a lock.
     """
 
     def __init__(self, export_dir: str, device: str = "cpu"):
@@ -102,11 +111,16 @@ class Servable:
         self.model_name = meta["model_name"]
         model_cfg = _cfg_from_dict(ModelConfig, meta["model_cfg"])
         self.criteo_cfg = _cfg_from_dict(CriteoConfig, meta["criteo_cfg"])
-        if self.criteo_cfg is None or meta.get("factory_kwargs"):
+        kwargs = meta.get("factory_kwargs") or {}
+        if self.criteo_cfg is not None and not kwargs:
+            self.model = make_model(self.model_name, self.criteo_cfg,
+                                    model_cfg)
+        elif self.criteo_cfg is None and self.model_name == "din":
+            self.model = make_model(self.model_name, cfg=model_cfg, **kwargs)
+        else:
             raise NotImplementedError(
-                f"servable {self.model_name!r}: only the Criteo models are "
-                "ported")
-        self.model = make_model(self.model_name, self.criteo_cfg, model_cfg)
+                f"servable {self.model_name!r}: only the Criteo models and "
+                "DIN are ported")
         restored = checkpoint.CheckpointManager(export_dir).restore()
         if restored is None:
             raise FileNotFoundError(f"no weights in {export_dir}")
@@ -116,10 +130,42 @@ class Servable:
         loaded = convert.convert_params(tree, self.device)
         self.params, self.model_state = tree_util.fill_like(
             template, _check_like(template, loaded))
-        self._vocab = np.asarray(self.criteo_cfg.field_vocab_sizes)
+        if self.criteo_cfg is not None:
+            self._vocab = np.asarray(self.criteo_cfg.field_vocab_sizes)
+        else:
+            items = self.params["item_emb"].shape[0]
+            cates = self.params["cate_emb"].shape[0]
+            self._vocab = {"i_id": items, "i_cate": cates,
+                           "hist_iid": items, "hist_cate": cates}
         self._predict = make_predict_step(self.model)
 
+    def _din_batch(self, features: dict[str, np.ndarray]) -> dict:
+        """DIN's four features, checked: ``i_id``/``i_cate`` [B],
+        ``hist_iid``/``hist_cate`` [B, P] with P ≥ 1, integers within their
+        table's vocab."""
+        out = {}
+        for name, vocab in self._vocab.items():
+            if name not in features:
+                raise ValueError(f"DIN request without feature {name!r}")
+            v = np.asarray(features[name])
+            want = 1 if name.startswith("i_") else 2
+            if v.ndim != want or (want == 2 and v.shape[1] < 1):
+                raise ValueError(f"{name} shape {v.shape}, want "
+                                 + ("[B]" if want == 1 else "[B, P ≥ 1]"))
+            if v.dtype.kind not in "iu" or (
+                    v.size and (v.min() < 0 or v.max() >= vocab)):
+                raise ValueError(f"{name} must be integers in [0, {vocab})")
+            out[name] = v
+        shapes = {k: v.shape for k, v in out.items()}
+        if len({s[0] for s in shapes.values()}) != 1 or \
+                shapes["hist_iid"] != shapes["hist_cate"]:
+            raise ValueError(f"DIN feature shapes {shapes} do not agree")
+        return {k: torch.from_numpy(v.astype(np.int64)).to(self.device)
+                for k, v in out.items()}
+
     def _batch(self, features: dict[str, np.ndarray]) -> dict:
+        if self.criteo_cfg is None:
+            return self._din_batch(features)
         ids = np.asarray(features["ids"])
         # RAW1 bodies arrive as read-only views; torch wants writable memory
         dense = np.require(features["dense"], np.float32, ["C", "W"])
@@ -129,7 +175,8 @@ class Servable:
         if dense.ndim != 2 or dense.shape[0] != ids.shape[0]:
             raise ValueError(f"dense shape {dense.shape} does not match ids "
                              f"{ids.shape}")
-        # an out-of-range id would be a device-side fault in the gather
+        # an id out of range never reaches a gather (the card's would answer
+        # with a zero row, the CPU's raise)
         if ids.dtype.kind not in "iu" or (
                 ids.size and (ids.min() < 0 or (ids >= self._vocab).any())):
             raise ValueError("ids must be integers in [0, field vocab)")
@@ -145,9 +192,16 @@ class Servable:
                                   self._batch(features))
             return probs.float().cpu().numpy()
 
+    def _sample_features(self, n: int) -> dict[str, np.ndarray]:
+        """A synthetic request of ``n`` rows: Criteo rows, or what the
+        model's ``meta['sample_features']`` makes (DIN)."""
+        if self.criteo_cfg is not None:
+            from recsys_tpu_torch.data.criteo import synthetic_criteo
+            d = synthetic_criteo(n, self.criteo_cfg)
+            return {"ids": d["ids"], "dense": d["dense"]}
+        return self.model.meta["sample_features"](n)
+
     def warmup(self) -> None:
         """One request of batch 1, so the first client does not pay the
         kernel build."""
-        from recsys_tpu_torch.data.criteo import synthetic_criteo
-        d = synthetic_criteo(1, self.criteo_cfg)
-        self.predict({"ids": d["ids"], "dense": d["dense"]})
+        self.predict(self._sample_features(1))

@@ -8,8 +8,12 @@
   call.
 
 Feature payloads: each instance is ``{"ids": [39 ints], "dense": [13
-floats]}`` for the Criteo models. gRPC and the raw-socket front end are not
-ported yet.
+floats]}`` for the Criteo models and ``{"i_id": int, "i_cate": int,
+"hist_iid": [P ints], "hist_cate": [P ints]}`` for DIN; the columnar
+formats carry the same names as arrays. The micro-batcher concatenates the
+requests it coalesces, so DIN requests with different P that land in one
+device call fail together (as in the JAX package). gRPC and the raw-socket
+front end are not ported yet.
 """
 
 from __future__ import annotations

@@ -16,7 +16,8 @@ accepted, as in the JAX package. A training set over the device budget
 (``--hbm_data_budget`` bytes, 4 GiB by default) or ``--streaming`` needs
 the streaming input pipeline, which is not ported yet: the command exits.
 
-``serve`` loads the servable (exported by either package) on ``--device``,
+``serve`` loads the servable (exported by either package: a Criteo model
+or DIN, whose ``tools/train_din.py serve`` comes here) on ``--device``,
 answers one warm-up request, and serves REST on 127.0.0.1 (``--port=0``
 binds a free port and logs it).
 
@@ -62,7 +63,9 @@ def _parse(argv: list[str]):
     return task, flat, overrides, streaming
 
 
-def _device(name: str):
+def device_from_flag(name: str):
+    """The torch device of a ``--device`` flag; ``cuda`` without a card
+    exits, it never falls back to the CPU."""
     import torch
 
     if name not in ("cuda", "cpu"):
@@ -79,7 +82,7 @@ def _serve(kv: dict) -> None:
     from recsys_tpu_torch.serve.export import Servable
     from recsys_tpu_torch.serve.server import make_rest_server
 
-    device = _device(kv.get("device", "cuda"))
+    device = device_from_flag(kv.get("device", "cuda"))
     sv = Servable(kv.get("export_dir", "./export"), device=device.type)
     sv.warmup()
     # the long-lived objects (parameters, the kernel library) are final:
@@ -109,9 +112,11 @@ def _train(cfg, kv: dict, streaming: bool) -> dict:
     from recsys_tpu_torch.models.api import make_model
     from recsys_tpu_torch.train import loop
 
-    device = _device(kv.get("device", "cuda"))
+    device = device_from_flag(kv.get("device", "cuda"))
     if streaming:
         raise SystemExit("streaming input is not ported yet")
+    if cfg.model.name == "din":
+        raise SystemExit("DIN trains with recsys_tpu_torch.tools.train_din")
     try:
         model = make_model(cfg.model.name, cfg.criteo, cfg.model)
     except ValueError as e:

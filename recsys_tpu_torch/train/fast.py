@@ -23,12 +23,15 @@ from recsys_tpu_torch.train import train_state as TS
 
 
 def stage_dataset(data: dict[str, np.ndarray], device) -> dict:
-    """Host arrays → tensors on ``device``; ``ids`` become int64, the
-    gathers' index type."""
+    """Host arrays (a dataset or one batch) → tensors on ``device``; integer
+    features (the Criteo ``ids``, DIN's item and category ids) become
+    int64, the gathers' index type."""
     out = {}
     for k, v in data.items():
         t = torch.from_numpy(np.ascontiguousarray(v))
-        out[k] = (t.to(torch.int64) if k == "ids" else t).to(device)
+        out[k] = (t.to(torch.int64) if not (t.is_floating_point()
+                                             or t.dtype == torch.bool)
+                  else t).to(device)
     return out
 
 

@@ -1,19 +1,25 @@
-"""The fast-path training loop (counterpart of
-``recsys_tpu/train/loop.py``'s ``train_and_evaluate_fast``): the dataset on
-the device, K steps per host call, periodic eval with the streaming AUC,
-logging of examples/s, and a checkpoint of ``(params, model_state,
-opt_state)`` at every eval, from which a later run resumes.
+"""Training loops (counterpart of ``recsys_tpu/train/loop.py``).
 
-Checkpoints are written in the JAX package's layout (`convert.export_params`
-turns the big table back into ``big_wm``), so either package can resume
-from the other's. The JSONL/TensorBoard summaries and best-metric
-retention are not ported yet.
+- `train_and_evaluate`: host-fed, one numpy batch per step copied to the
+  device (DIN trains with it, ``tools/train_din.py``); a log line of loss
+  and examples/s every ``log_every_steps``, eval every
+  ``eval_every_steps`` and at the end, a checkpoint at every eval and every
+  ``save_checkpoints_steps``.
+- `train_and_evaluate_fast`: the dataset on the device, K steps per host
+  call, eval and a checkpoint every ``eval_every_steps``.
+
+Both resume from the latest checkpoint of ``(params, model_state,
+opt_state)``. Checkpoints are written in the JAX package's layout
+(`convert.export_params` turns the big table back into ``big_wm``), so
+either package can resume from the other's. The JSONL/TensorBoard
+summaries and best-metric retention are not ported yet.
 """
 
 from __future__ import annotations
 
 import logging
 import time
+from typing import Iterable, Iterator
 
 import numpy as np
 import torch
@@ -47,6 +53,77 @@ def _resume(ts, ckpt: CheckpointManager):
     log.info("resumed from step %d", step)
     return ts._replace(step=torch.tensor(step, dtype=torch.int32,
                                          device=device))
+
+
+def evaluate(model: Model, params, model_state,
+             eval_batches: Iterable[dict[str, np.ndarray]], *, device,
+             max_steps: int | None = None) -> dict[str, float]:
+    """One eval sweep over host batches on ``device`` → {'auc',
+    'accuracy', 'logloss', 'count'}."""
+    eval_step = TS.make_eval_step(model)
+    mstate = M.init_binary_metrics(device=device)
+    for i, batch in enumerate(eval_batches):
+        if max_steps is not None and i >= max_steps:
+            break
+        mstate = eval_step(params, model_state, mstate,
+                           fast.stage_dataset(batch, device))
+    return M.finalize_binary_metrics(mstate)
+
+
+def train_and_evaluate(model: Model, train_iter: Iterator[dict],
+                       eval_batches_fn, cfg: TrainConfig, *, num_steps: int,
+                       device, resume: bool = True) -> dict[str, float]:
+    """Train for ``num_steps`` on ``device`` from host batches
+    (``next(train_iter)``, numpy), with periodic eval and checkpoints.
+    ``eval_batches_fn()`` returns a fresh finite iterable of eval batches.
+    → the last eval's metrics plus ``train_seconds``, ``first_loss`` and
+    ``final_loss`` (the first and last logged losses) and
+    ``examples_per_sec`` (the last log window's rate)."""
+    ts, tx = TS.create_train_state(model, cfg.seed, cfg.learning_rate,
+                                   device)
+    step_fn = TS.make_train_step(model, tx)
+    ckpt = CheckpointManager(cfg.model_dir, cfg.keep_checkpoint_max)
+    if resume:
+        ts = _resume(ts, ckpt)
+    start_step = int(ts.step)
+
+    t0 = time.time()
+    window_t0, window_step = t0, start_step
+    losses: list[float] = []
+    ex_s = float("nan")
+    metrics: dict[str, float] = {}
+    for step_idx in range(start_step, num_steps):
+        batch = next(train_iter)
+        ts, loss = step_fn(ts, fast.stage_dataset(batch, device))
+        if (step_idx + 1) % cfg.log_every_steps == 0:
+            losses.append(float(loss))        # the one host read per window
+            now = time.time()
+            steps_s = (step_idx + 1 - window_step) / max(now - window_t0,
+                                                         1e-9)
+            ex_s = steps_s * len(batch["label"])
+            log.info("step %d loss %.5f  %.1f steps/s  %.0f ex/s",
+                     step_idx + 1, losses[-1], steps_s, ex_s)
+            window_t0, window_step = now, step_idx + 1
+
+        do_ckpt = (step_idx + 1) % cfg.save_checkpoints_steps == 0
+        if (step_idx + 1) % cfg.eval_every_steps == 0 or \
+                step_idx + 1 == num_steps:
+            metrics = evaluate(model, ts.params, ts.model_state,
+                               eval_batches_fn(), device=device,
+                               max_steps=cfg.eval_steps)
+            log.info("eval @ step %d: auc %.5f logloss %.5f acc %.5f",
+                     step_idx + 1, metrics["auc"], metrics["logloss"],
+                     metrics["accuracy"])
+            do_ckpt = True
+        if do_ckpt:
+            ckpt.save(step_idx + 1, convert.export_params(
+                (ts.params, ts.model_state, ts.opt_state)),
+                metric=metrics.get("auc"))
+    metrics["train_seconds"] = time.time() - t0
+    metrics["first_loss"] = losses[0] if losses else float("nan")
+    metrics["final_loss"] = losses[-1] if losses else float("nan")
+    metrics["examples_per_sec"] = ex_s
+    return metrics
 
 
 def train_and_evaluate_fast(model: Model, train_data: dict[str, np.ndarray],

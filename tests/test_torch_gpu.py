@@ -1,8 +1,8 @@
 """The port on the card: the CUDA kernels (CIN forward and backward,
-segment sum) against their plain versions at the shapes of full-width
-xDeepFM and DeepFM, autograd through them, a servable on the card against
-the same servable on the CPU, and three training steps on the card against
-the same steps on the CPU. Every test here is marked ``gpu`` and skips
+segment sum, row gather) against their plain versions at the shapes of
+full-width xDeepFM, DeepFM and DIN, autograd through them, servables on the
+card against the same servables on the CPU, and three training steps on the
+card against the same steps on the CPU. Every test here is marked ``gpu`` and skips
 without a CUDA device (the kernels have no CPU mode). This file imports
 neither jax nor the JAX package, so it also runs where jax is absent:
 
@@ -20,7 +20,9 @@ from recsys_tpu_torch.core import tree as tree_util
 from recsys_tpu_torch.core.config import CriteoConfig, ModelConfig
 from recsys_tpu_torch.data.criteo import synthetic_criteo
 from recsys_tpu_torch.models.api import make_model
+from recsys_tpu_torch.data import amazon
 from recsys_tpu_torch.ops import cin_kernel
+from recsys_tpu_torch.ops import row_gather as rg
 from recsys_tpu_torch.ops import segment_sum as ss
 from recsys_tpu_torch.serve.export import Servable, export_servable
 from recsys_tpu_torch.train import fast
@@ -195,6 +197,86 @@ def test_three_train_steps_on_the_card_match_the_cpu(cuda_device, name):
     assert ss.LAUNCHES - counts[0] == 6
     assert cin_kernel.BWD_LAUNCHES - counts[1] == (9 if name == "xdeepfm"
                                                    else 0)
+    (l_cpu, p_cpu), (l_gpu, p_gpu) = out["cpu"], out["cuda"]
+    assert abs(l_cpu - l_gpu) <= 1e-5 * abs(l_cpu)
+    for a, b in zip(tree_util.leaves(p_cpu), tree_util.leaves(p_gpu)):
+        torch.testing.assert_close(b.cpu(), a, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("v,w,n", [
+    (63_002, 32, 33_792),     # DIN's item table at B=1024, P=32 (+ targets)
+    (802, 32, 33_792),        # DIN's category table
+    (837_632, 17, 229_376),   # the Criteo big table at B=16384
+    (4_096, 17, 409_600),     # the Criteo small table at B=16384
+    (1_000, 17, 3_333),       # ragged N
+    (300, 1, 1_000),          # W = 1
+    (64, 32, 0),              # N = 0
+])
+def test_row_gather_kernel_is_index_select(cuda_device, v, w, n):
+    gen = torch.Generator().manual_seed(v + n)
+    table = torch.randn(v, w, generator=gen).to(cuda_device)
+    ids = torch.randint(0, v, (n,), generator=gen)
+    if n >= 2:
+        ids[:2] = torch.tensor([0, v - 1])
+    ids = ids.to(cuda_device)
+    before = rg.LAUNCHES
+    got = rg.row_gather(table, ids)
+    torch.cuda.synchronize()
+    assert rg.LAUNCHES == before + (1 if n else 0)
+    assert got.shape == (n, w)
+    assert torch.equal(got, torch.index_select(table, 0, ids))   # bitwise
+
+
+def test_row_gather_kernel_out_of_range_ids_and_alignment(cuda_device):
+    """An id outside [0, V) reads nothing and gives a zero row; a table
+    that is not 16-byte aligned (W % 4 == 0) takes the scalar path."""
+    table = torch.randn(10, 32, device=cuda_device)
+    ids = torch.tensor([-1, 10, 3, 2 ** 40, 9], device=cuda_device)
+    got = rg.row_gather(table, ids)
+    torch.cuda.synchronize()
+    assert not got[[0, 1, 3]].any()
+    assert torch.equal(got[2], table[3]) and torch.equal(got[4], table[9])
+    flat = torch.randn(1 + 1000 * 32, device=cuda_device)
+    shifted = flat[1:].view(1000, 32)            # 4 bytes off alignment
+    ids = torch.randint(0, 1000, (5000,), device=cuda_device)
+    assert torch.equal(rg.row_gather(shifted, ids), shifted[ids])
+
+
+def test_din_servable_on_the_card_matches_the_cpu(cuda_device, tmp_path):
+    mcfg = ModelConfig(name="din", embedding_dim=32, use_bn=False)
+    params, state = make_model("din", 5000, 100, mcfg).init(
+        torch.Generator().manual_seed(0), "cpu")
+    export_servable(str(tmp_path), "din", params, state, mcfg,
+                    factory_kwargs={"item_vocab": 5000, "cate_vocab": 100})
+    sv = Servable(str(tmp_path), device="cuda")
+    feats = sv._sample_features(300)
+    before = (rg.LAUNCHES, ss.LAUNCHES)
+    got = sv.predict(feats)
+    assert (rg.LAUNCHES - before[0], ss.LAUNCHES - before[1]) == (4, 0)
+    ref = Servable(str(tmp_path), device="cpu").predict(feats)
+    np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
+
+
+def test_three_din_steps_on_the_card_match_the_cpu(cuda_device):
+    """3 optimizer steps of DIN at full width (attention 80-40, MLP
+    100-50-20, D = 32) over 2,000 items and 40 categories, batch 256,
+    history padded to 32, at dropout 0, on the card (kernels) and on the
+    CPU (plain versions). Tolerance 1e-4 on the parameters."""
+    ds = amazon.synthetic_din_hard(n_users=2000, item_vocab=2000,
+                                   cate_vocab=40)
+    model = make_model("din", 2000, 40, ModelConfig(
+        name="din", embedding_dim=32, use_bn=False, dropout=0.0))
+    batches = list(amazon.batches(ds, 256, seed=1, num_epochs=1))[:3]
+    out = {}
+    for dev in ("cpu", cuda_device):
+        ts, tx = TS.create_train_state(model, 0, 1e-3, dev)
+        step = TS.make_train_step(model, tx)
+        counts = (rg.LAUNCHES, ss.LAUNCHES)
+        for b in batches:
+            ts, loss = step(ts, fast.stage_dataset(b, dev))
+        out[str(dev)] = (float(loss), ts.params)
+    assert ss.LAUNCHES - counts[1] == 12          # 4 table reads per step
+    assert rg.LAUNCHES - counts[0] == 12
     (l_cpu, p_cpu), (l_gpu, p_gpu) = out["cpu"], out["cuda"]
     assert abs(l_cpu - l_gpu) <= 1e-5 * abs(l_cpu)
     for a, b in zip(tree_util.leaves(p_cpu), tree_util.leaves(p_gpu)):
