@@ -7,14 +7,18 @@
 It fails (exit code other than 0, no result line) without a CUDA device or
 without the package beside it. On a card it
 
-1. prints the card's name and power limit (nvidia-smi) and builds the four
-   kernels from their sources, one nvcc each, all started together:
+1. prints the card's name and power limit (nvidia-smi) and builds the five
+   kernel sources, one nvcc each, all started together:
    ``csrc/cin_layer.cu`` (CIN forward), ``csrc/cin_backward.cu`` (CIN
-   backward), ``csrc/segment_sum.cu`` (the embedding-gradient sum) and
-   ``csrc/row_gather.cu`` (the embedding forward gather);
+   backward), ``csrc/segment_sum.cu`` (the embedding-gradient sum),
+   ``csrc/row_gather.cu`` (the embedding forward gather) and
+   ``csrc/reshape_probe.cu`` (the two reshape probes);
 2. kernel phases, each kernel against its plain PyTorch version on the card
    at the main paths' shapes, timed with CUDA events in the order plain,
-   kernel, kernel, plain:
+   kernel, kernel, plain, beside the one PyTorch call that computes the
+   same function where there is one (``index_add_``, ``index_select``,
+   ``torch.mul``) and the kernel's bound (the larger of its bytes over
+   3.35 TB/s and its operations over the 67 TFLOP/s float32 peak):
    - CIN forward and backward: the three layers of full-width xDeepFM at
      N = 16·B rows for B in 1, 200, 4096 and at a ragged N (forward
      tolerance 1e-4 absolute and relative: 1521-term float32 sums in
@@ -22,37 +26,51 @@ without the package beside it. On a card it
      dW/db, sums over all N rows, 1e-4 relative plus 1e-4·N/1024
      absolute), timed at B = 4096;
    - segment sum: the big (837,632 rows) and small (4,096 rows) tables of
-     DeepFM at batch 16384 with the engine's own ids, a ragged N, one id
-     for every update, and N = 0 (tolerance 1e-5 of the row's Σ|g|: sums
-     in another order), bitwise equal across two calls, timed at batch
-     16384;
+     DeepFM at batch 16384 with the engine's own ids, the fused engine's
+     one table (638,976 ids into 840,704 × 17) and the wide model's
+     weights (the same ids into 840,704 × 1), a ragged N, one id for every
+     update, and N = 0 (tolerance 1e-5 of the row's Σ|g|: sums in another
+     order), bitwise equal across two calls, timed at batch 16384;
    - row gather: bitwise equal to ``index_select`` (a copy is exact) at
      DIN's item (63,002×32) and category (802×32) tables with 33,792 ids
      (B = 1024, P = 32, plus the targets), the Criteo big and small tables
-     at batch 16384 with the engine's own ids, a ragged N, W = 1 and N = 0,
-     rows 0 and V−1 always among the ids; timed at DIN's item table and
-     the Criteo big table, as device time per call inside a CUDA graph (a
+     at batch 16384 with the engine's own ids, the fused engine's table
+     (840,704×17, 638,976 ids), a ragged N, W = 1 and N = 0, rows 0 and
+     V−1 always among the ids; timed at DIN's item table, the Criteo big
+     table and the fused table, as device time per call inside a CUDA graph (a
      copy of a few MB takes microseconds, less than a launch from Python)
      and as a host loop through the wrapper;
-3. serving: full-width xDeepFM and full-width DIN with seeded random
-   weights, exported, served over REST from a thread (xDeepFM at batches
-   1, 200 and 4096, DIN at 1, 200 and 1024 with histories padded to 32;
+   - reshape probes (``via_reshape`` and ``via_2d``, the counterparts of
+     the TPU compiler probes S2 and S3): first each entry point once at
+     VP = 837,632, W = 17 (the launches counted), then bitwise equal to
+     the plain version there and at a ragged length, timed as a host loop
+     and as device time in a CUDA graph beside ``torch.mul(x, 2.0)``;
+3. serving: full-width xDeepFM, DCN and DIN with seeded random weights,
+   exported, served over REST from a thread (xDeepFM and DCN at batches 1,
+   200 and 4096, DIN at 1, 200 and 1024 with histories padded to 32;
    JSON, NPZ1, RAW1), every answer within 1e-4 of the CPU servable, each
    xDeepFM request launching the CIN forward 3 times and the row gather
-   twice, each DIN request the row gather 4 times and the segment sum
-   never; a request with an id out of range gets a 400 and the server
-   keeps answering; then ``train_ctr serve`` and ``train_din serve``
-   (``--device=cuda``) from the command line each answer one request;
-4. training: full-width DeepFM at batch 16384 and full-width xDeepFM at
-   batch 4096 through ``fast.make_scanned_train_step_devgen``, 200 steps in
-   calls of K = 50 on a device-resident synthetic dataset. The loss must be
-   finite and fall, each step must launch the segment sum and the row
-   gather twice (and, for xDeepFM, the CIN forward and backward three times
-   each), the eval AUC on held-out rows must beat the untrained model's by
-   0.02, the CIN filters' gradients on the card must be non-zero, and 3
-   steps at dropout 0 on the card must match the same 3 steps on the CPU
-   (plain versions) within 1e-4 on every parameter (a tenth of one Adam
-   step at lr 1e-3);
+   twice, each DCN request the row gather twice, each DIN request the row
+   gather 4 times, and none the segment sum; a request with an id out of
+   range gets a 400 and the server keeps answering; then ``train_ctr
+   serve`` and ``train_din serve`` (``--device=cuda``) from the command
+   line each answer one request;
+4. training, full width at batch 16384 (xDeepFM at 4096) through
+   ``fast.make_scanned_train_step_devgen`` in calls of K = 50 on a
+   device-resident synthetic dataset, 200 steps each: DeepFM, xDeepFM,
+   DCN, FM, DeepFM and DNN on the fused engine, and the wide model (FTRL
+   at alpha 4.0, as the JAX results protocol trains it). The loss must be
+   finite and fall, each step must launch
+   the segment sum and the row gather once per table read (twice on the
+   split engine, once on the fused engine and for wide; for xDeepFM also
+   the CIN forward and backward three times each), the eval AUC on
+   held-out rows must beat the untrained model's by 0.02, the CIN filters'
+   gradients on the card must be non-zero, and 3 steps at dropout 0 on the
+   card must match the same 3 steps on the CPU (plain versions) within
+   1e-4 on every parameter (a tenth of one Adam step at lr 1e-3); for DNN,
+   whose small table gradients make Adam's first steps amplify float32
+   rounding past 1e-4, every gradient of one batch must match the CPU's
+   within 1e-4 of its leaf's largest instead;
 5. DIN training: full width (items 63,002, categories 802, D = 32,
    attention 80-40, MLP 100-50-20, dropout 0.1, Adam lr 1e-3) at batch
    1024 through ``loop.train_and_evaluate`` on host-fed batches of
@@ -61,9 +79,10 @@ without the package beside it. On a card it
    times, the held-out AUC must beat the untrained model's by 0.02, the
    tables' gradients on the card must be non-zero, and 3 steps at dropout
    0 must match the CPU within 1e-4;
-6. ``train_ctr train`` and ``train_din train`` (``--device=cuda``) from the
-   command line each exit 0, print an eval AUC and leave a checkpoint; then
-   ``train_din export`` writes a servable that loads on the card.
+6. ``train_ctr train`` (DeepFM, and DCN on the fused engine) and
+   ``train_din train`` (``--device=cuda``) from the command line each exit
+   0, print an eval AUC and leave a checkpoint; then ``train_din export``
+   writes a servable that loads on the card.
 
 Float32 matrix products run in full float32:
 ``torch.backends.cuda.matmul.allow_tf32 = False`` (and cuDNN's TF32 off).
@@ -99,6 +118,10 @@ AUC_MARGIN = 0.02
 STEP_TOL = 1e-4
 DIN_BATCHES = (1, 200, 1024)
 DIN_STEPS = 300
+WIDE_LR = 4.0            # FTRL alpha on batch-mean gradients (results.py)
+PROBE_ROWS, PROBE_W = 837_632, 17
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
+FP32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 
 
 def _check(ok: bool, what: str) -> None:
@@ -160,6 +183,35 @@ def _zero(counters: dict) -> None:
         m.LAUNCHES = 0
 
 
+def _bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """(ms, what bounds it): the least time the card could take for work
+    that moves ``nbytes`` (each input read once, each output written once)
+    and does ``flops`` float32 operations, against the H100 SXM's 3.35 TB/s
+    and 67 TFLOP/s."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / FP32_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _cin_fwd_work(n, f0, fk, h) -> tuple[float, float]:
+    """(bytes, flops) of one CIN layer forward: read x0v, xkv, W, b, write
+    y; the outer product, the [N, F0·Fk] @ [F0·Fk, H] product, bias and
+    ReLU."""
+    nbytes = 4 * (n * f0 + n * fk + f0 * fk * h + h + n * h)
+    return nbytes, n * f0 * fk + 2 * n * f0 * fk * h + 2 * n * h
+
+
+def _cin_bwd_work(n, f0, fk, h) -> tuple[float, float]:
+    """(bytes, flops) of one CIN layer backward: read x0v, xkv, W, y, dy,
+    write dx0, dxk, dW, db; dz = g·Wᵀ, dx0 and dxk from dz, z again for
+    dW = zᵀg, db."""
+    nbytes = 4 * (2 * (n * f0 + n * fk + f0 * fk * h + n * h) + h)
+    flops = (2 * n * h * f0 * fk + 4 * n * f0 * fk + n * f0 * fk
+             + 2 * n * f0 * fk * h + 2 * n * h)
+    return nbytes, flops
+
+
 def _cin_inputs(gen, n, f0, fk, h, dev):
     lim = (6.0 / (f0 * fk + h)) ** 0.5
     x0v = torch.randn(n, f0, generator=gen).to(dev)
@@ -173,7 +225,8 @@ def cin_forward_phase(cin_kernel, layers, dev) -> dict:
     """CIN forward kernel vs plain version: errors at every shape, times at
     B = 4096."""
     gen = torch.Generator().manual_seed(1234)
-    max_abs, ms, plain_ms = 0.0, 0.0, 0.0
+    max_abs, ms, plain_ms, bound_ms = 0.0, 0.0, 0.0, 0.0
+    biggest = (0.0, "operations")
     for n in [16 * b for b in BATCHES] + [RAGGED_N]:
         for f0, fk, h in layers:
             x0v, xkv, w, b = _cin_inputs(gen, n, f0, fk, h, dev)
@@ -195,20 +248,29 @@ def cin_forward_phase(cin_kernel, layers, dev) -> dict:
                     lambda: cin_kernel.cin_layer_fwd(x0v, xkv, w, b),
                     lambda: cin_kernel.cin_layer_reference(x0v, xkv, w, b),
                     50)
+                b_ms, b_by = _bound(*_cin_fwd_work(n, f0, fk, h))
+                if b_ms > biggest[0]:
+                    biggest = (b_ms, b_by)
                 ms += k_ms
                 plain_ms += p_ms
-                line += f" kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f}"
+                bound_ms += b_ms
+                line += (f" kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+                         f"bound_ms={b_ms:.4f}")
             print(line, flush=True)
             _check(ok, f"CIN forward kernel disagrees with its plain version "
                        f"at N={n} Fk={fk} H={h}")
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+    # the bound is the sum of the layers' bounds; what bounds the largest
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": biggest[1],
+            "library_ms": None}
 
 
 def cin_backward_phase(cin_kernel, layers, dev) -> dict:
     """CIN backward kernel vs plain version: errors at every shape, times
     at B = 4096."""
     gen = torch.Generator().manual_seed(4321)
-    max_abs, ms, plain_ms = 0.0, 0.0, 0.0
+    max_abs, ms, plain_ms, bound_ms = 0.0, 0.0, 0.0, 0.0
+    biggest = (0.0, "operations")
     for n in [16 * b for b in BATCHES] + [RAGGED_N]:
         for f0, fk, h in layers:
             x0v, xkv, w, b = _cin_inputs(gen, n, f0, fk, h, dev)
@@ -242,21 +304,40 @@ def cin_backward_phase(cin_kernel, layers, dev) -> dict:
                     lambda: cin_kernel.cin_layer_bwd(x0v, xkv, w, y, dy),
                     lambda: cin_kernel.cin_layer_backward_reference(
                         x0v, xkv, w, y, dy), 20)
+                b_ms, b_by = _bound(*_cin_bwd_work(n, f0, fk, h))
+                if b_ms > biggest[0]:
+                    biggest = (b_ms, b_by)
                 ms += k_ms
                 plain_ms += p_ms
-                line += f" kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f}"
+                bound_ms += b_ms
+                line += (f" kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+                         f"bound_ms={b_ms:.4f}")
             print(line, flush=True)
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+    # the bound is the sum of the layers' bounds; what bounds the largest
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": biggest[1],
+            "library_ms": None}
+
+
+def _segment_sum_bytes(n: int, w: int, rows: int) -> int:
+    """Bytes a segment sum must move: ids [N] int64 and grads [N, W] read
+    once, the dense [rows, W] float32 table written once."""
+    return 8 * n + 4 * n * w + 4 * rows * w
 
 
 def segment_sum_phase(ss, ccfg, dev) -> dict:
-    """Segment-sum kernel vs plain version on the card; times at batch
-    16384 (the big and the small table together, sort included)."""
+    """Segment-sum kernel vs plain version on the card, timed at batch
+    16384 (sort included) at each engine's shapes: the split engine's two
+    tables, the fused engine's one, the wide model's weights. → numbers of
+    the fused engine's shape (the slice's main path) plus every timed
+    shape under ``shapes``."""
     from recsys_tpu_torch.core.config import EmbeddingConfig
     from recsys_tpu_torch.data.criteo import synthetic_criteo
     from recsys_tpu_torch.embeddings import engines
 
-    eng = engines.SplitEngine(EmbeddingConfig(ccfg.field_vocab_sizes, 16))
+    emb_cfg = EmbeddingConfig(ccfg.field_vocab_sizes, 16)
+    eng = engines.SplitEngine(emb_cfg)
+    fused = engines.FusedGatherEngine(emb_cfg)
     params = eng.init(torch.Generator().manual_seed(0), "meta")
     ids = torch.from_numpy(synthetic_criteo(16384, ccfg, start_row=555)[
         "ids"].astype(np.int64)).to(dev)
@@ -266,7 +347,11 @@ def segment_sum_phase(ss, ccfg, dev) -> dict:
         gids = (ids.index_select(1, fields) + offsets).reshape(-1)
         rows = params[name].shape[0]
         g = torch.randn(gids.shape[0], 17, generator=gen).to(dev)
-        cases.append((f"{name} table B=16384", gids, g, rows, True))
+        cases.append((f"split {name} table B=16384", gids, g, rows, True))
+    gids = (ids + torch.as_tensor(fused.offsets, device=dev)).reshape(-1)
+    for label, w in (("fused table B=16384", 17), ("wide weights B=16384", 1)):
+        g = torch.randn(gids.shape[0], w, generator=gen).to(dev)
+        cases.append((label, gids, g, fused.v_pad, True))
     g = torch.randn(RAGGED_N, 17, generator=gen).to(dev)
     cases.append(("ragged", torch.randint(0, 1000, (RAGGED_N,),
                                           generator=gen).to(dev), g, 1000,
@@ -277,7 +362,7 @@ def segment_sum_phase(ss, ccfg, dev) -> dict:
     cases.append(("N=0", torch.zeros(0, dtype=torch.int64, device=dev),
                   torch.zeros(0, 17, device=dev), 4096, False))
 
-    max_abs, ms, plain_ms = 0.0, 0.0, 0.0
+    max_abs, shapes = 0.0, {}
     for label, gids, g, rows, timed in cases:
         got = ss.segment_sum(gids, g, rows)
         ref = ss.segment_sum_reference(gids, g, rows)
@@ -290,29 +375,38 @@ def segment_sum_phase(ss, ccfg, dev) -> dict:
         same = torch.equal(got, ss.segment_sum(gids, g, rows))
         uniq = int(torch.unique(gids).numel())
         line = (f"segment sum {label}: N={gids.shape[0]} rows={rows} "
-                f"unique={uniq} max_abs_err="
+                f"W={g.shape[1]} unique={uniq} max_abs_err="
                 f"{err.max().item() if err.numel() else 0.0:.3e} "
                 f"bitwise_repeat={same}")
         if timed:
             k_ms, p_ms = _timed_pair(
                 lambda: ss.segment_sum(gids, g, rows),
                 lambda: ss.segment_sum_reference(gids, g, rows), 50)
-            ms += k_ms
-            plain_ms += p_ms
-            line += f" kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f}"
+            buf = torch.zeros_like(got)
+            lib_ms = _cuda_ms(lambda: buf.index_add_(0, gids, g), 50)
+            b_ms, b_by = _bound(_segment_sum_bytes(gids.shape[0], g.shape[1],
+                                                   rows),
+                                gids.shape[0] * g.shape[1])
+            shapes[label] = {"ms": k_ms, "plain_ms": p_ms,
+                             "library_ms": lib_ms, "bound_ms": b_ms,
+                             "bound_by": b_by}
+            line += (f" kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+                     f"index_add_ms={lib_ms:.4f} bound_ms={b_ms:.4f}")
         print(line, flush=True)
         _check(ok, f"segment-sum kernel disagrees with its plain version "
                    f"({label})")
         _check(same, f"segment-sum kernel not bitwise deterministic "
                      f"({label})")
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+    return dict(shapes["fused table B=16384"], max_abs_err=max_abs,
+                shapes=shapes)
 
 
 def row_gather_phase(rg, ccfg, dev) -> dict:
     """Row-gather kernel vs ``index_select`` on the card, bitwise; times at
-    DIN's item table and the Criteo big table: device time per call in a
-    CUDA graph (ms: the sum of the two shapes), and the host loop through
-    the wrapper, which is what the eager path pays per call."""
+    DIN's item table, the Criteo big table and the fused engine's table:
+    device time per call in a CUDA graph (ms: the sum of the first two
+    shapes; each under ``shapes``), and the host loop through the wrapper,
+    which is what the eager path pays per call."""
     from recsys_tpu_torch.core.config import EmbeddingConfig
     from recsys_tpu_torch.data.criteo import synthetic_criteo
     from recsys_tpu_torch.embeddings import engines
@@ -332,12 +426,15 @@ def row_gather_phase(rg, ccfg, dev) -> dict:
                       shapes[name].shape[0], 17,
                       (ids.index_select(1, fields) + offsets).reshape(-1),
                       name == "big"))
+    fused = engines.FusedGatherEngine(eng.cfg)
+    cases.append(("Criteo fused table B=16384", fused.v_pad, 17,
+                  (ids + torch.as_tensor(fused.offsets)).reshape(-1), True))
     cases += [("ragged", 1000, 17,
                torch.randint(0, 1000, (RAGGED_N,), generator=gen), False),
               ("W=1", 300, 1, torch.randint(0, 300, (1000,), generator=gen),
                False),
               ("N=0", 64, 32, torch.zeros(0, dtype=torch.int64), False)]
-    max_abs, ms, plain_ms = 0.0, 0.0, 0.0
+    max_abs, timed_shapes = 0.0, {}
     for label, v, w, gids, timed in cases:
         if gids.numel() >= 2:
             gids[:2] = torch.tensor([0, v - 1])
@@ -367,15 +464,95 @@ def row_gather_phase(rg, ccfg, dev) -> dict:
             k_ms, p_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
             hk_ms, hp_ms = _timed_pair(lambda: rg.row_gather(table, gids),
                                        plain, 100)
-            ms += k_ms
-            plain_ms += p_ms
-            line += (f" device: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f};"
-                     f" host loop: wrapper_ms={hk_ms:.4f} "
-                     f"plain_ms={hp_ms:.4f}")
+            # ids read, the rows they name read once, the output written
+            n = gids.shape[0]
+            b_ms, _ = _bound(8 * n + 4 * w * (
+                int(torch.unique(gids).numel()) + n), 0)
+            timed_shapes[label] = {"ms": k_ms, "plain_ms": p_ms,
+                                   "library_ms": p_ms, "bound_ms": b_ms,
+                                   "bound_by": "bytes", "host_ms": hk_ms,
+                                   "host_plain_ms": hp_ms}
+            line += (f" device: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+                     f"bound_ms={b_ms:.4f}; host loop: wrapper_ms="
+                     f"{hk_ms:.4f} plain_ms={hp_ms:.4f}")
         print(line, flush=True)
         _check(torch.equal(got, ref), f"row-gather kernel differs from "
                                       f"index_select ({label})")
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+    # the line's numbers: DIN's item table plus the Criteo big table, as in
+    # earlier runs; the plain version is the library call, index_select
+    both = [timed_shapes["DIN item table"],
+            timed_shapes["Criteo big table B=16384"]]
+    out = {k: sum(t[k] for t in both)
+           for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    return dict(out, max_abs_err=max_abs, bound_by="bytes",
+                shapes=timed_shapes)
+
+
+def reshape_probe_phase(rp, dev) -> dict:
+    """The reshape probes at VP = 837,632, W = 17: each entry point once
+    (the launches counted), then bitwise against the plain version there
+    and at a ragged length, timed in the order plain, kernel, kernel,
+    plain as a host loop through the wrapper and as device time in a CUDA
+    graph, beside ``torch.mul(x, 2.0)``. → per entry point its numbers."""
+    gen = torch.Generator().manual_seed(17)
+    flat = torch.randn(PROBE_ROWS * PROBE_W, generator=gen).to(dev)
+    x2 = flat.view(PROBE_ROWS, PROBE_W)
+    torch.cuda.synchronize()
+    rp.VIA_RESHAPE_LAUNCHES = rp.VIA_2D_LAUNCHES = 0   # the path starts
+    outs = {"flat": rp.via_reshape(flat, PROBE_W), "2d": rp.via_2d(x2)}
+    torch.cuda.synchronize()
+    launches = {"flat": rp.VIA_RESHAPE_LAUNCHES,
+                "2d": rp.VIA_2D_LAUNCHES}                # ... and ends here
+    _check(launches == {"flat": 1, "2d": 1},
+           f"reshape probe launches {launches}, want one each")
+    want = rp.reshape_probe_reference(flat, PROBE_W)
+    ragged = flat[1:1 + 1001 * PROBE_W]      # ragged and 4 bytes off
+    max_abs = 0.0
+    for label, got, ref in [
+            ("flat", outs["flat"], want), ("2d", outs["2d"], want),
+            ("flat ragged", rp.via_reshape(ragged, PROBE_W),
+             rp.reshape_probe_reference(ragged, PROBE_W)),
+            ("2d ragged", rp.via_2d(flat[:1001 * PROBE_W].view(1001,
+                                                               PROBE_W)),
+             rp.reshape_probe_reference(flat[:1001 * PROBE_W], PROBE_W))]:
+        torch.cuda.synchronize()
+        max_abs = max(max_abs, (got - ref).abs().max().item())
+        _check(torch.equal(got, ref), f"reshape probe {label} differs from "
+                                      "its plain version")
+    b_ms, b_by = _bound(2 * 4 * flat.numel(), flat.numel())
+    out = torch.empty_like(x2)
+    lib, res = rp._lib(), {}
+    for label, fn, src, wrapper in (
+            ("flat", "via_reshape", flat,
+             lambda: rp.via_reshape(flat, PROBE_W)),
+            ("2d", "via_2d", x2, lambda: rp.via_2d(x2))):
+
+        def kern(fn=fn, src=src):
+            err = getattr(lib, fn)(src.data_ptr(), out.data_ptr(),
+                                   PROBE_ROWS, PROBE_W,
+                                   torch.cuda.current_stream().cuda_stream)
+            _check(err == 0, f"{fn} launch failed: {err}")
+
+        def plain(src=src):
+            return rp.reshape_probe_reference(src, PROBE_W)
+
+        def library(src=src):
+            torch.mul(src, 2.0, out=out.view(src.shape))
+
+        hk_ms, hp_ms = _timed_pair(wrapper, plain, 50)
+        t = [_graph_ms(f) for f in (plain, kern, kern, plain)]
+        k_ms, p_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+        lib_ms = _graph_ms(library)
+        res[label] = {"launches": launches[label], "max_abs_err": max_abs,
+                      "ms": k_ms,
+                      "plain_ms": p_ms, "library_ms": lib_ms,
+                      "bound_ms": b_ms, "bound_by": b_by,
+                      "host_ms": hk_ms, "host_plain_ms": hp_ms}
+        print(f"reshape probe {fn} VP={PROBE_ROWS} W={PROBE_W}: bitwise; "
+              f"device: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+              f"torch.mul_ms={lib_ms:.4f} bound_ms={b_ms:.4f}; host loop: "
+              f"wrapper_ms={hk_ms:.4f} plain_ms={hp_ms:.4f}", flush=True)
+    return res
 
 
 def randomize(params, state, seed: int):
@@ -605,9 +782,11 @@ def _eval_auc(model, ts, staged_eval, batch_size) -> float:
     return M.finalize_binary_metrics(mstate)["auc"]
 
 
-def _three_steps_match(name, ccfg, mcfg, data, batch_size, dev) -> float:
+def _three_steps_match(name, ccfg, mcfg, data, batch_size, dev,
+                       lr: float = 1e-3) -> float:
     """3 steps at dropout 0 from one state on one [3, B] index matrix, on the
-    card and on the CPU; → max |Δ| over every parameter."""
+    card and on the CPU, with the optimizer the model declares at ``lr``;
+    → max |Δ| over every parameter."""
     import dataclasses
 
     from recsys_tpu_torch.core import tree
@@ -620,7 +799,7 @@ def _three_steps_match(name, ccfg, mcfg, data, batch_size, dev) -> float:
                                             (3, batch_size))
     out = []
     for d in ("cpu", dev):
-        ts, tx = TS.create_train_state(model, 11, 1e-3, d)
+        ts, tx = TS.create_train_state(model, 11, lr, d)
         ts, loss = fast.make_scanned_train_step(model, tx)(
             ts, fast.stage_dataset(data, d), idx)
         out.append((float(loss), tree.leaves(ts.params)))
@@ -633,21 +812,56 @@ def _three_steps_match(name, ccfg, mcfg, data, batch_size, dev) -> float:
     return diff
 
 
-def train_phase(name, ccfg, mcfg, batch_size, dev, cin_kernel, ss,
-                rg) -> dict:
-    """Train full-width ``name`` on the card through the devgen fast path;
-    → counts and numbers of the main path's run."""
+def _grads_match(name, ccfg, mcfg, data, batch_size, dev) -> float:
+    """Every gradient of one batch's loss at dropout 0 from one seeded
+    state, on the card and on the CPU; → the largest difference relative
+    to its leaf's largest CPU gradient (absolute for a leaf whose gradient
+    is zero), after checking it is within 1e-4."""
+    import dataclasses
+
+    from recsys_tpu_torch.core import tree
+    from recsys_tpu_torch.models.api import make_model
+    from recsys_tpu_torch.train import train_state as TS
+
+    model = make_model(name, ccfg, dataclasses.replace(mcfg, dropout=0.0))
+    out = []
+    for d in ("cpu", dev):
+        ts, _ = TS.create_train_state(model, 11, 1e-3, d)
+        batch = {k: torch.from_numpy(v[:batch_size]).to(d)
+                 for k, v in data.items()}
+        batch["ids"] = batch["ids"].long()
+        _, _, g = TS.loss_and_grads(model, ts.params, ts.model_state, batch)
+        out.append([x.cpu() for x in tree.leaves(g)])
+    worst = 0.0
+    for g_cpu, g_dev in zip(*out):
+        diff = float((g_dev - g_cpu).abs().max())
+        scale = float(g_cpu.abs().max())    # 0 for a leaf the model skips
+        worst = max(worst, diff / scale if scale > 0 else diff)
+    _check(worst <= 1e-4, f"{name}: gradients on the card differ from the "
+                          f"CPU's by {worst} of their largest")
+    return worst
+
+
+def train_phase(name, ccfg, mcfg, batch_size, dev, cin_kernel, ss, rg, *,
+                lr: float = 1e-3, reads: int = 2,
+                match: str = "steps") -> dict:
+    """Train full-width ``name`` on the card through the devgen fast path
+    with the optimizer the model declares at ``lr``; each step reads
+    ``reads`` tables. Then 3 steps (``match='steps'``) or one batch's
+    gradients (``'grads'``) on the card are held against the CPU. →
+    counts and numbers of the main path's run."""
     from recsys_tpu_torch.data.criteo import synthetic_criteo
     from recsys_tpu_torch.models.api import make_model
     from recsys_tpu_torch.train import fast
     from recsys_tpu_torch.train import train_state as TS
 
+    label = name + (" (fused engine)" if mcfg.emb_engine == "fused" else "")
     model = make_model(name, ccfg, mcfg)
     data = synthetic_criteo(16 * batch_size, ccfg)
     eval_data = synthetic_criteo(4 * batch_size, ccfg, start_row=10 ** 8)
     staged = fast.stage_dataset(data, dev)
     staged_eval = fast.stage_dataset(eval_data, dev)
-    ts, tx = TS.create_train_state(model, 0, 1e-3, dev)
+    ts, tx = TS.create_train_state(model, 0, lr, dev)
     auc0 = _eval_auc(model, ts, staged_eval, batch_size)
     step_fn = fast.make_scanned_train_step_devgen(
         model, tx, len(data["label"]), batch_size)
@@ -668,17 +882,18 @@ def train_phase(name, ccfg, mcfg, batch_size, dev, cin_kernel, ss,
     # the first call warms up the allocator and cuBLAS: rate over the rest
     ex_s = batch_size * K * (len(t_calls) - 1) / sum(t_calls[1:])
     auc1 = _eval_auc(model, ts, staged_eval, batch_size)
-    print(f"{name} training at batch {batch_size}: {steps} steps, mean loss "
+    print(f"{label} training at batch {batch_size}: {steps} steps, mean loss "
           f"per call {['%.5f' % l for l in losses]}, eval AUC {auc0:.4f} -> "
           f"{auc1:.4f} on {len(eval_data['label'])} held-out rows, "
           f"{ex_s:.1f} ex/s (calls 2-{len(t_calls)}), launches {counts}",
           flush=True)
-    _check(all(np.isfinite(losses)), f"{name}: loss {losses}")
-    _check(losses[-1] < losses[0], f"{name}: loss did not fall: {losses}")
-    _check(counts["segment_sum"] == 2 * steps and
-           counts["row_gather"] == 2 * steps,
-           f"{name}: segment-sum and row-gather launches {counts} for "
-           f"{steps} steps, want {2 * steps} each (two tables)")
+    _check(all(np.isfinite(losses)), f"{label}: loss {losses}")
+    _check(losses[-1] < losses[0], f"{label}: loss did not fall: {losses}")
+    _check(counts["segment_sum"] == reads * steps and
+           counts["row_gather"] == reads * steps,
+           f"{label}: segment-sum and row-gather launches {counts} for "
+           f"{steps} steps, want {reads * steps} each ({reads} table reads "
+           "per step)")
     if name == "xdeepfm":
         _check(counts["cin_fwd"] == 3 * steps and
                counts["cin_bwd"] == 3 * steps,
@@ -689,34 +904,48 @@ def train_phase(name, ccfg, mcfg, batch_size, dev, cin_kernel, ss,
               "(within 1e-4 of the CPU's)", flush=True)
         _check(min(g) > 0, f"{name}: a CIN filter has no gradient: {g}")
     _check(auc1 >= auc0 + AUC_MARGIN,
-           f"{name}: eval AUC {auc1} after training, {auc0} before")
-    diff = _three_steps_match(name, ccfg, mcfg, data, batch_size, dev)
-    print(f"{name}: 3 steps at dropout 0 on the card match the CPU: max "
-          f"|param diff| {diff:.3e} (tolerance {STEP_TOL})", flush=True)
+           f"{label}: eval AUC {auc1} after training, {auc0} before")
+    if match == "steps":
+        diff = _three_steps_match(name, ccfg, mcfg, data, batch_size, dev,
+                                  lr)
+        print(f"{label}: 3 steps at dropout 0 on the card match the CPU: "
+              f"max |param diff| {diff:.3e} (tolerance {STEP_TOL})",
+              flush=True)
+    else:
+        rel = _grads_match(name, ccfg, mcfg, data, batch_size, dev)
+        print(f"{label}: every gradient at dropout 0 on the card matches "
+              f"the CPU's: max |diff| {rel:.3e} of its leaf's largest "
+              "(tolerance 1e-4)", flush=True)
     return {"counts": counts, "ex_s": ex_s, "auc": (auc0, auc1),
             "losses": losses}
 
 
-def train_cli_phase(ccfg) -> None:
-    """``train_ctr train --device=cuda`` on synthetic shards."""
+def train_cli_phase(ccfg, model_flags=(("deepfm", "split"), ("dcn", "fused"))
+                    ) -> None:
+    """``train_ctr train --device=cuda`` on synthetic shards, once for each
+    (model, engine) of ``model_flags``."""
     from recsys_tpu_torch.data.criteo import write_synthetic_shards
 
     with tempfile.TemporaryDirectory() as tmp:
-        data_dir, model_dir = f"{tmp}/data", f"{tmp}/model"
+        data_dir = f"{tmp}/data"
         write_synthetic_shards(data_dir, 10 * 32768, 10, ccfg)
-        code, out = _run_cli(
-            "train_ctr",
-            ["train", "--model.name=deepfm", "--device=cuda",
-             f"--data_dir={data_dir}", f"--train.model_dir={model_dir}",
-             "--train.batch_size=16384", "--train.num_steps=100",
-             "--train.eval_every_steps=50", "--train.eval_steps=2"], 600)
-        _check(code == 0, f"train_ctr train exited with {code}")
-        m = re.search(r"'auc': ([0-9.]+)", out)
-        _check(m is not None, "train_ctr train printed no eval AUC")
-        ckpts = sorted(os.listdir(model_dir))
-        _check("step_100" in ckpts, f"no checkpoint step_100 in {ckpts}")
-        print(f"command-line training: eval AUC {m.group(1)}, checkpoints "
-              f"{ckpts}", flush=True)
+        for name, engine in model_flags:
+            model_dir = f"{tmp}/model_{name}_{engine}"
+            code, out = _run_cli(
+                "train_ctr",
+                ["train", f"--model.name={name}",
+                 f"--model.emb_engine={engine}", "--device=cuda",
+                 f"--data_dir={data_dir}", f"--train.model_dir={model_dir}",
+                 "--train.batch_size=16384", "--train.num_steps=100",
+                 "--train.eval_every_steps=50", "--train.eval_steps=2"], 600)
+            _check(code == 0, f"train_ctr train {name} exited with {code}")
+            m = re.search(r"'auc': ([0-9.]+)", out)
+            _check(m is not None, f"train_ctr train {name} printed no eval "
+                                  "AUC")
+            ckpts = sorted(os.listdir(model_dir))
+            _check("step_100" in ckpts, f"no checkpoint step_100 in {ckpts}")
+            print(f"command-line training {name} ({engine} engine): eval AUC "
+                  f"{m.group(1)}, checkpoints {ckpts}", flush=True)
 
 
 def din_data():
@@ -885,6 +1114,7 @@ def main() -> None:
     from recsys_tpu_torch.models.api import make_model
     from recsys_tpu_torch.models.din import CATE_VOCAB, ITEM_VOCAB
     from recsys_tpu_torch.ops import cin_kernel, cuda_build
+    from recsys_tpu_torch.ops import reshape_probe as rp
     from recsys_tpu_torch.ops import row_gather as rg
     from recsys_tpu_torch.ops import segment_sum as ss
     from recsys_tpu_torch.serve.export import export_servable
@@ -901,9 +1131,10 @@ def main() -> None:
     dev = torch.device("cuda")
     t_start = time.perf_counter()
 
-    sources = [cin_kernel.SOURCE, cin_kernel.BWD_SOURCE, ss.SOURCE, rg.SOURCE]
+    sources = [cin_kernel.SOURCE, cin_kernel.BWD_SOURCE, ss.SOURCE, rg.SOURCE,
+               rp.SOURCE]
     libs = cuda_build.build_all(sources)
-    print(f"built {len(libs)} kernels in parallel in "
+    print(f"built {len(libs)} kernel sources in parallel in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     for lib in libs:
         with open(lib + ".log") as f:
@@ -922,30 +1153,42 @@ def main() -> None:
     bwd = cin_backward_phase(cin_kernel, layers, dev)
     seg = segment_sum_phase(ss, ccfg, dev)
     gat = row_gather_phase(rg, ccfg, dev)
+    probe = reshape_probe_phase(rp, dev)
     print(f"kernel phases ok [{card}]: CIN fwd {fwd['ms']:.4f} ms vs plain "
           f"{fwd['plain_ms']:.4f} ms, CIN bwd {bwd['ms']:.4f} ms vs plain "
           f"{bwd['plain_ms']:.4f} ms (three layers at B=4096); segment sum "
-          f"{seg['ms']:.4f} ms vs plain {seg['plain_ms']:.4f} ms (both "
-          f"tables at B=16384); row gather {gat['ms']:.4f} ms vs "
-          f"index_select {gat['plain_ms']:.4f} ms of device time (DIN item "
-          "table at B=1024 plus Criteo big table at B=16384)", flush=True)
+          f"{seg['ms']:.4f} ms vs plain {seg['plain_ms']:.4f} ms, index_add_ "
+          f"{seg['library_ms']:.4f} ms (fused table at B=16384); row gather "
+          f"{gat['ms']:.4f} ms vs index_select {gat['plain_ms']:.4f} ms of "
+          "device time (DIN item table at B=1024 plus Criteo big table at "
+          f"B=16384); reshape probes {probe['flat']['ms']:.4f} / "
+          f"{probe['2d']['ms']:.4f} ms vs torch.mul "
+          f"{probe['flat']['library_ms']:.4f} / "
+          f"{probe['2d']['library_ms']:.4f} ms of device time", flush=True)
 
-    model = make_model("xdeepfm", ccfg, xcfg)
-    params, state = randomize(*model.init(torch.Generator().manual_seed(0),
-                                          "cpu"), seed=1)
-    reqs = {}
-    for i, b in enumerate(BATCHES):
-        d = synthetic_criteo(b, ccfg, start_row=10_000 * i)
-        reqs[b] = {"ids": d["ids"], "dense": d["dense"]}
-    bad = {"ids": reqs[1]["ids"].copy(), "dense": reqs[1]["dense"]}
-    bad["ids"][0, -1] = ccfg.field_vocab_sizes[-1]
-    with tempfile.TemporaryDirectory() as export_dir:
-        export_servable(export_dir, "xdeepfm", params, state, xcfg, ccfg)
-        served = serving_phase(
-            export_dir, reqs, bad, "xdeepfm",
-            {"cin_fwd": cin_kernel, "row_gather": rg, "segment_sum": ss},
-            {"cin_fwd": 3, "row_gather": 2, "segment_sum": 0})
-        serve_cli_phase("train_ctr", export_dir, reqs[200])
+    served = {}
+    for name, mcfg, per_request in (
+            ("xdeepfm", xcfg, {"cin_fwd": 3, "row_gather": 2,
+                               "segment_sum": 0}),
+            ("dcn", ModelConfig(name="dcn"), {"cin_fwd": 0, "row_gather": 2,
+                                              "segment_sum": 0})):
+        model = make_model(name, ccfg, mcfg)
+        params, state = randomize(*model.init(
+            torch.Generator().manual_seed(0), "cpu"), seed=1)
+        reqs = {}
+        for i, b in enumerate(BATCHES):
+            d = synthetic_criteo(b, ccfg, start_row=10_000 * i)
+            reqs[b] = {"ids": d["ids"], "dense": d["dense"]}
+        bad = {"ids": reqs[1]["ids"].copy(), "dense": reqs[1]["dense"]}
+        bad["ids"][0, -1] = ccfg.field_vocab_sizes[-1]
+        with tempfile.TemporaryDirectory() as export_dir:
+            export_servable(export_dir, name, params, state, mcfg, ccfg)
+            served[name] = serving_phase(
+                export_dir, reqs, bad, name,
+                {"cin_fwd": cin_kernel, "row_gather": rg, "segment_sum": ss},
+                per_request)
+            if name == "xdeepfm":
+                serve_cli_phase("train_ctr", export_dir, reqs[200])
 
     din_train, din_eval = din_data()
     din_model, din_cfg = _din_model(0.1)
@@ -960,64 +1203,99 @@ def main() -> None:
         export_servable(export_dir, "din", params, state, din_cfg,
                         factory_kwargs={"item_vocab": ITEM_VOCAB,
                                         "cate_vocab": CATE_VOCAB})
-        din_served = serving_phase(
+        served["din"] = serving_phase(
             export_dir, reqs, bad, "din",
             {"row_gather": rg, "segment_sum": ss},
             {"row_gather": 4, "segment_sum": 0})
         serve_cli_phase("train_din", export_dir, reqs[200])
-    print("served p50 latency (REST, RAW1, one request at a time): xDeepFM "
-          + ", ".join(f"batch {b}: {ms:.3f} ms"
-                      for b, ms in served["p50_ms"].items())
-          + "; DIN " + ", ".join(f"batch {b}: {ms:.3f} ms"
-                                 for b, ms in din_served["p50_ms"].items())
+    print("served p50 latency (REST, RAW1, one request at a time): "
+          + "; ".join(f"{name} " + ", ".join(
+              f"batch {b}: {ms:.3f} ms" for b, ms in sv["p50_ms"].items())
+              for name, sv in served.items())
           + f" [{card}]", flush=True)
 
-    deepfm = train_phase("deepfm", ccfg, ModelConfig(name="deepfm"), 16384,
-                         dev, cin_kernel, ss, rg)
-    xdeepfm = train_phase("xdeepfm", ccfg, xcfg, 4096, dev, cin_kernel, ss,
-                          rg)
+    def zoo(name, batch_size=16384, **kw):
+        cfg = kw.pop("cfg", ModelConfig(name=name))
+        return train_phase(name, ccfg, cfg, batch_size, dev, cin_kernel, ss,
+                           rg, **kw)
+
+    trained = {
+        "DeepFM": zoo("deepfm"),
+        "xDeepFM B=4096": zoo("xdeepfm", 4096, cfg=xcfg),
+        "DCN": zoo("dcn"),
+        "DeepFM fused": zoo("deepfm", cfg=ModelConfig(
+            name="deepfm", emb_engine="fused"), reads=1),
+        "FM": zoo("fm"),
+        # DNN's table gradients are small enough that Adam's first steps,
+        # which move a weight by about lr whatever its gradient's size, turn
+        # float32 rounding into differences above 1e-4: its gradients are
+        # compared instead of its parameters after 3 steps
+        "DNN fused": zoo("dnn", cfg=ModelConfig(name="dnn",
+                                                emb_engine="fused"), reads=1,
+                         match="grads"),
+        "wide (FTRL)": zoo("wide", reads=1, lr=WIDE_LR),
+    }
     din = din_train_phase(din_train, din_eval, dev, rg, ss)
-    print(f"training throughput [{card}]: DeepFM B=16384 "
-          f"{deepfm['ex_s']:.1f} ex/s, xDeepFM B=4096 {xdeepfm['ex_s']:.1f} "
-          f"ex/s, DIN B=1024 {din['ex_s']:.1f} ex/s", flush=True)
+    print(f"training throughput [{card}]: "
+          + ", ".join(f"{k} {v['ex_s']:.1f} ex/s" for k, v in trained.items())
+          + f", DIN B={DIN_BATCHES[-1]} {din['ex_s']:.1f} ex/s (all "
+          "B=16384 unless stated)", flush=True)
     train_cli_phase(ccfg)
     din_cli_phase()
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
+    fused = trained["DeepFM fused"]["counts"]
     print(json.dumps({"kernels": [
         {"name": "cin_layer_fwd", "route": "cuda",
          "source": "recsys_tpu_torch/csrc/cin_layer.cu",
          "replaces": "recsys_tpu/ops/pallas_cin.py:149",
-         "launches": served["launches"]["cin_fwd"],
-         "max_abs_err": fwd["max_abs_err"],
-         "ms": fwd["ms"], "plain_ms": fwd["plain_ms"]},
+         "note": "launches: xDeepFM serving; ms: three layers at B=4096",
+         "launches": served["xdeepfm"]["launches"]["cin_fwd"],
+         **{k: fwd[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms")}},
         {"name": "cin_layer_bwd", "route": "cuda",
          "source": "recsys_tpu_torch/csrc/cin_backward.cu",
          "replaces": "recsys_tpu/ops/pallas_cin.py:180",
-         "launches": xdeepfm["counts"]["cin_bwd"],
-         "max_abs_err": bwd["max_abs_err"],
-         "ms": bwd["ms"], "plain_ms": bwd["plain_ms"]},
+         "note": "launches: xDeepFM training; ms: three layers at B=4096",
+         "launches": trained["xDeepFM B=4096"]["counts"]["cin_bwd"],
+         **{k: bwd[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms")}},
         {"name": "segment_sum", "route": "cuda",
          "source": "recsys_tpu_torch/csrc/segment_sum.cu",
          "replaces": "recsys_tpu/ops/pallas_kernels.py:334",
          "also_replaces": "recsys_tpu/ops/pallas_kernels.py:154",
-         "note": "launches: DeepFM training; the :154 contract (row-major) "
-                 "is reached by DIN's four table gathers, "
-                 f"{din['counts']['segment_sum']} launches in DIN training",
-         "launches": deepfm["counts"]["segment_sum"],
-         "max_abs_err": seg["max_abs_err"],
-         "ms": seg["ms"], "plain_ms": seg["plain_ms"]},
+         "note": "launches: fused-engine DeepFM training (one per step, "
+                 "the :154 contract's FusedGatherEngine caller); ms: the "
+                 "fused table at B=16384 (638,976 ids into 840,704 x 17); "
+                 "launches elsewhere: "
+                 + ", ".join(f"{k} {v['counts']['segment_sum']}"
+                             for k, v in trained.items())
+                 + f", DIN {din['counts']['segment_sum']}",
+         "launches": fused["segment_sum"],
+         **{k: seg[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms", "shapes")}},
         {"name": "row_gather", "route": "cuda",
          "source": "recsys_tpu_torch/csrc/row_gather.cu",
          "replaces": "scratch/rowdma_kernel.py:72",
-         "note": "launches: DIN training (4 per step plus eval); ms: "
-                 "device time in a CUDA graph, DIN item table at B=1024 "
-                 "plus Criteo big table at B=16384",
+         "note": "launches: DIN training (4 per step plus eval); "
+                 f"fused-engine DeepFM training {fused['row_gather']} (one "
+                 "per step); ms: device time in a CUDA graph, DIN item table "
+                 "at B=1024 plus Criteo big table at B=16384; the plain "
+                 "version is the library call, index_select",
          "launches": din["counts"]["row_gather"],
-         "max_abs_err": gat["max_abs_err"],
-         "ms": gat["ms"], "plain_ms": gat["plain_ms"]},
-    ]}))
+         **{k: gat[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms", "shapes")}},
+    ] + [
+        {"name": name, "route": "cuda",
+         "source": "recsys_tpu_torch/csrc/reshape_probe.cu",
+         "replaces": f"scratch/mosaic_reshape_test.py:{line}",
+         "note": "a compiler probe no path reaches: launches from the probe "
+                 "phase's own run; ms: device time in a CUDA graph at "
+                 f"VP={PROBE_ROWS}, W={PROBE_W}; library: torch.mul(x, 2.0)",
+         **probe[key]}
+        for name, key, line in (("reshape_probe_flat", "flat", 18),
+                                ("reshape_probe_2d", "2d", 33))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

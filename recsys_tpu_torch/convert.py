@@ -1,16 +1,18 @@
 """Parameter trees between the JAX package's layout and the port's.
 
 The trees have the same structure (nested dicts, lists, tuples and
-NamedTuples such as ``AdamState(count, mu, nu)``, dense kernels
-``[in, out]``, ENGINE field order everywhere) with one exception: the JAX
-``SplitEngine`` stores its big-field table transposed, as
-``tables['big_wm']`` ``[D+1, V_pad]`` (W-major, for the TPU's lane
+NamedTuples such as ``AdamState(count, mu, nu)`` and ``FtrlState(z, n)``,
+dense kernels ``[in, out]``, ENGINE field order everywhere) with one
+exception: the JAX ``SplitEngine`` stores its big-field table transposed,
+as ``tables['big_wm']`` ``[D+1, V_pad]`` (W-major, for the TPU's lane
 tiling), where the port keeps it row-major as ``tables['big']``
 ``[V_pad, D+1]``. The rename and transpose apply wherever the key appears,
-so the Adam moments ``mu``/``nu``, which mirror the parameter tree, follow
-their parameter. `convert_params` maps a JAX tree of numpy arrays to port
-tensors; `export_params` maps back; `convert_train_state` takes a whole
-JAX ``TrainState``.
+so the optimizer states, which mirror the parameter tree, follow their
+parameter. The fused engine's flat ``table_flat`` and the wide model's
+``wide/w`` have the same layout in both and pass through as they are.
+`convert_params` maps a JAX tree of numpy arrays to port tensors;
+`export_params` maps back; `convert_train_state` takes a whole JAX
+``TrainState``.
 """
 
 from __future__ import annotations

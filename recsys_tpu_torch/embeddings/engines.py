@@ -1,11 +1,21 @@
-"""Embedding engine: how a [B, F] id batch becomes the model's embedding
+"""Embedding engines: how a [B, F] id batch becomes the model's embedding
 parts (counterpart of ``recsys_tpu/embeddings/engines.py``).
 
-Only ``SplitEngine`` is ported. Fields are partitioned by vocab size:
+**SplitEngine** (the default): fields are partitioned by vocab size:
 *small* fields (vocab ≤ ``threshold``) share one packed table, *big* fields
 (the hash-capped vocabs) another. Both are row-major ``[V_pad, D+1]`` and
 both are read with `table.table_gather`, in training as in inference: two
 gathers per step, whose backward is two segment sums.
+
+**FusedGatherEngine** (``emb_engine='fused'``): all fields in one packed
+table, kept flat as the JAX package keeps it (``table_flat``
+``[V_pad·(D+1)]``, so checkpoints and ``convert.py`` need no mapping) and
+read through its ``[V_pad, D+1]`` view with one `table.table_gather`: one
+row gather and one segment sum per step. Only its local path is ported;
+the sharded lookup waits for the multi-device port. The JAX engine's
+flat-gradient ``table_gather_flat`` exists for the TPU's tiling: a view is
+free here, and the segment sum's ``[V_pad, D+1]`` gradient reaches
+``table_flat`` through it.
 
 The JAX engine's training path turns the small-field lookup into a one-hot
 matmul and stores the big table transposed; both exist for the TPU's
@@ -55,6 +65,84 @@ class EmbParts(NamedTuple):
         return self.emb_2d.reshape(self.emb_2d.shape[0], num_fields, dim)
 
 
+def _parts_from_rows(emb: torch.Tensor, wide: torch.Tensor,
+                     field_order: np.ndarray) -> EmbParts:
+    """EmbParts from a [B, F, D] + [B, F] lookup (the row-tensor engines);
+    ``emb_parts`` stays None, so models feed ``emb_2d`` to their MLP."""
+    b, f, d = emb.shape
+    return EmbParts(
+        emb_2d=emb.reshape(b, f * d),
+        wide=wide,
+        emb_sum=emb.sum(dim=1),
+        emb_sq_sum=emb.square().sum(dim=1),
+        field_order=field_order,
+    )
+
+
+def _on_device(cache: dict, lock: threading.Lock, device, make):
+    """``cache[device]``, made once by ``make(device)`` under ``lock``."""
+    device = torch.device(device)
+    with lock:
+        value = cache.get(device)
+        if value is None:
+            value = cache[device] = make(device)
+        return value
+
+
+@dataclass(frozen=True)
+class FusedGatherEngine:
+    """All fields through one packed flat ``[V_pad·(D+1)]`` table and a
+    single gather."""
+
+    cfg: EmbeddingConfig
+    #: per device: the field offsets as a tensor, built once
+    _consts: dict = field(default_factory=dict, init=False, repr=False,
+                          compare=False)
+    _consts_lock: threading.Lock = field(default_factory=threading.Lock,
+                                         init=False, repr=False,
+                                         compare=False)
+
+    @property
+    def offsets(self) -> np.ndarray:
+        return emb_table.field_offsets(self.cfg.field_vocab_sizes)
+
+    @property
+    def width(self) -> int:
+        return self.cfg.embedding_dim + 1
+
+    @property
+    def v_pad(self) -> int:
+        return emb_table.pad_rows(self.cfg.total_vocab)
+
+    @property
+    def field_order(self) -> np.ndarray:
+        return np.arange(len(self.cfg.field_vocab_sizes), dtype=np.int32)
+
+    def init(self, gen: torch.Generator, device) -> dict:
+        """{'table_flat': [V_pad·(D+1)], 'b': scalar}."""
+        table = emb_table.fused_init(gen, self.cfg, device)
+        return {"table_flat": table.reshape(-1),
+                "b": torch.zeros((), dtype=torch.float32, device=device)}
+
+    def lookup(self, params, ids: torch.Tensor, train: bool = False):
+        """(emb [B, F, D], wide [B, F]) of [B, F] int64 field-local ids,
+        differentiable in ``table_flat``."""
+        del train          # the gather is the path of both
+        offsets = _on_device(
+            self._consts, self._consts_lock, ids.device,
+            lambda d: torch.as_tensor(self.offsets, dtype=torch.int64,
+                                      device=d))
+        gids = emb_table.to_global_ids(ids, offsets)
+        table = params["table_flat"].view(self.v_pad, self.width)
+        rows = emb_table.table_gather(table, gids)
+        return rows[:, :, :-1], rows[:, :, -1]
+
+    def lookup_parts(self, params, ids: torch.Tensor,
+                     train: bool = False) -> EmbParts:
+        emb, wide = self.lookup(params, ids, train=train)
+        return _parts_from_rows(emb, wide, self.field_order)
+
+
 @dataclass(frozen=True)
 class SplitEngine:
     cfg: EmbeddingConfig
@@ -101,22 +189,20 @@ class SplitEngine:
                                                    torch.Tensor]]:
         """[(part name, field count, fields [F_part], offsets [F_part])] on
         ``device``, for the parts that have fields."""
-        device = torch.device(device)
-        with self._consts_lock:
-            consts = self._consts.get(device)
-            if consts is None:
-                consts = []
-                for name, fields in zip(("small", "big"), self._partition()):
-                    if fields:
-                        offsets = emb_table.field_offsets(self._sizes(fields))
-                        consts.append((
-                            name, len(fields),
-                            torch.as_tensor(fields, dtype=torch.int64,
-                                            device=device),
-                            torch.as_tensor(offsets, dtype=torch.int64,
-                                            device=device)))
-                self._consts[device] = consts
+        def make(device):
+            consts = []
+            for name, fields in zip(("small", "big"), self._partition()):
+                if fields:
+                    offsets = emb_table.field_offsets(self._sizes(fields))
+                    consts.append((
+                        name, len(fields),
+                        torch.as_tensor(fields, dtype=torch.int64,
+                                        device=device),
+                        torch.as_tensor(offsets, dtype=torch.int64,
+                                        device=device)))
             return consts
+
+        return _on_device(self._consts, self._consts_lock, device, make)
 
     def lookup_parts(self, params, ids: torch.Tensor,
                      train: bool = False) -> EmbParts:
@@ -145,7 +231,9 @@ class SplitEngine:
 
 
 def make_engine(cfg: EmbeddingConfig, name: str = "split",
-                threshold: int = SPLIT_THRESHOLD) -> SplitEngine:
+                threshold: int = SPLIT_THRESHOLD):
     if name == "split":
         return SplitEngine(cfg, threshold)
-    raise ValueError(f"embedding engine {name!r} is not ported yet")
+    if name == "fused":
+        return FusedGatherEngine(cfg)
+    raise ValueError(f"unknown embedding engine {name!r}")

@@ -5,9 +5,11 @@ All fields of a table live in ONE row-major ``[V_pad, D+1]`` matrix: columns
 ``0..D-1`` are the embedding, column ``D`` the wide/linear weight, and a
 batch of field-local ids is shifted by static per-field offsets into global
 row ids and fetched with one gather. `table_gather` is every table read of
-the port (the Criteo engine's and DIN's): its forward is the row gather of
-``ops/row_gather.py``, its backward the segment sum of
+the port (the Criteo engines', the wide model's and DIN's): its forward is
+the row gather of ``ops/row_gather.py``, its backward the segment sum of
 ``ops/segment_sum.py``; on the card both are hand-written CUDA kernels.
+The wide model's per-row weight vector is read the same way, as a
+``[V_pad, 1]`` view (`linear_sum`).
 
 ``V_pad`` stays a multiple of 1024, as in the JAX package, so a converted
 JAX table and a port table have the same shape. The JAX package stores its
@@ -37,6 +39,33 @@ def field_offsets(field_vocab_sizes: tuple[int, ...]) -> np.ndarray:
 
 def pad_rows(total: int, multiple: int = ROW_MULTIPLE) -> int:
     return (total + multiple - 1) // multiple * multiple
+
+
+def to_global_ids(ids: torch.Tensor, offsets) -> torch.Tensor:
+    """[B, F] field-local → packed global row ids. ``offsets`` is a numpy
+    array or, to send nothing from the host, a tensor already on ``ids``'s
+    device."""
+    return ids + torch.as_tensor(offsets, dtype=ids.dtype,
+                                 device=ids.device)[None, :]
+
+
+def linear_init(gen: torch.Generator, field_vocab_sizes: tuple[int, ...],
+                device, dtype=torch.float32) -> dict:
+    """Packed per-row linear weights (the indicator → dense(1) kernel
+    rows): ``{'w': [V_pad] glorot_uniform over the virtual [V_pad, 1]
+    kernel, 'b': 0}``."""
+    v = pad_rows(sum(field_vocab_sizes))
+    return {"w": nn.glorot_uniform(gen, (v, 1), device, dtype)[:, 0],
+            "b": torch.zeros((), dtype=dtype, device=device)}
+
+
+def linear_sum(params: dict, gids: torch.Tensor) -> torch.Tensor:
+    """Wide term: Σ_f w[gid_f] + b → [B, 1]. ``w`` is read through
+    `table_gather` on its ``[V_pad, 1]`` view, so on the card the forward
+    is the row gather and the backward the segment sum at W = 1 (the JAX
+    package takes a plain ``jnp.take``; the values are the same)."""
+    w = table_gather(params["w"].view(-1, 1), gids)[..., 0]     # [B, F]
+    return w.sum(dim=1, keepdim=True) + params["b"]
 
 
 def fused_init(gen: torch.Generator, cfg: EmbeddingConfig,

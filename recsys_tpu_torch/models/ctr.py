@@ -1,9 +1,16 @@
-"""Criteo CTR models (counterpart of ``recsys_tpu/models/ctr.py``).
+"""Criteo CTR models (counterpart of ``recsys_tpu/models/ctr.py``): FM,
+DeepFM, DCN, xDeepFM, DNN and the wide linear model.
 
-DeepFM and xDeepFM are ported; the rest of the zoo follows. Parameter trees
-keep the JAX package's structure and ENGINE field order, so a converted JAX
-tree gives the same logits and gradients (tests/test_torch_xdeepfm.py,
-tests/test_torch_train.py).
+Parameter trees keep the JAX package's structure and ENGINE field order, so
+a converted JAX tree gives the same logits and gradients
+(tests/test_torch_xdeepfm.py, tests/test_torch_train.py,
+tests/test_torch_zoo.py). Every model but ``wide`` reads its embeddings
+through the engine of ``cfg.emb_engine`` (``split`` or ``fused``).
+
+The JAX models take an ``EmbOps`` that routes their table reads to the
+sharded lookup inside ``shard_map``; the port has one device, so the models
+call the engine and `table.linear_sum` directly until the multi-device
+path is ported.
 """
 
 from __future__ import annotations
@@ -14,6 +21,7 @@ import torch
 from recsys_tpu_torch.core.config import (CriteoConfig, EmbeddingConfig,
                                           ModelConfig)
 from recsys_tpu_torch.embeddings import engines
+from recsys_tpu_torch.embeddings import table as emb_table
 from recsys_tpu_torch.models.api import Model, register
 from recsys_tpu_torch.ops import interactions, nn
 
@@ -29,8 +37,20 @@ class _CriteoBase:
         emb_cfg = EmbeddingConfig(field_vocab_sizes=criteo.field_vocab_sizes,
                                   embedding_dim=cfg.embedding_dim)
         self.num_fields = len(criteo.field_vocab_sizes)
+        self.offsets = emb_table.field_offsets(criteo.field_vocab_sizes)
         self.engine = engines.make_engine(emb_cfg, cfg.emb_engine,
                                           threshold=cfg.split_threshold)
+        self.meta = {"emb_width": cfg.embedding_dim + 1}
+        self._offsets_on: dict = {}
+
+    def gids(self, batch) -> torch.Tensor:
+        """[B, F] packed global row ids of the batch's field-local ids (the
+        offsets sent to each device once)."""
+        ids = batch["ids"]
+        if ids.device not in self._offsets_on:
+            self._offsets_on[ids.device] = torch.as_tensor(
+                self.offsets, dtype=torch.int64, device=ids.device)
+        return emb_table.to_global_ids(ids, self._offsets_on[ids.device])
 
     def init_fused(self, gen: torch.Generator, device) -> dict:
         """Engine-owned tables (+ shared wide bias)."""
@@ -39,6 +59,41 @@ class _CriteoBase:
     def lookup_parts(self, params, batch, train: bool = False):
         return self.engine.lookup_parts(params["tables"], batch["ids"],
                                         train=train)
+
+
+def _mlp_input(parts: engines.EmbParts):
+    """The split engine's parts feed the first dense layer in list form
+    (no concat); the fused engine has none and gives ``emb_2d``."""
+    return parts.emb_parts if parts.emb_parts is not None else parts.emb_2d
+
+
+# ---------------------------------------------------------------------------
+# FM — fm/fm.py:115-170
+# ---------------------------------------------------------------------------
+
+@register("fm")
+def make_fm(criteo: CriteoConfig = CriteoConfig(),
+            cfg: ModelConfig = ModelConfig(name="fm")) -> Model:
+    """Factorization machine: y_1d = relu(Σ wide weights + the tables'
+    shared bias); y_2d = the FM identity over the field sums; logits =
+    dense(concat(y_1d, y_2d))."""
+    base = _CriteoBase(criteo, cfg)
+
+    def init(gen: torch.Generator, device):
+        params = base.init_fused(gen, device)
+        params["final"] = nn.dense_init(gen, 2, 1, device)
+        return params, {}
+
+    def apply(params, state, batch, *, train=False, gen=None):
+        parts = base.lookup_parts(params, batch, train=train)
+        y_1d = torch.relu(parts.wide.sum(dim=1, keepdim=True)
+                          + params["tables"]["b"])
+        y_2d = interactions.fm_pairwise_from_sums(parts.emb_sum,
+                                                  parts.emb_sq_sum)
+        logits = nn.dense(params["final"], torch.cat([y_1d, y_2d], dim=-1))
+        return _squeeze_logits(logits), state
+
+    return Model("fm", init, apply, meta=base.meta)
 
 
 # ---------------------------------------------------------------------------
@@ -74,14 +129,52 @@ def make_deepfm(criteo: CriteoConfig = CriteoConfig(),
         y_2d = interactions.fm_pairwise_from_sums(parts.emb_sum,
                                                   parts.emb_sq_sum)
         h, dnn_s = nn.mlp_apply(params["dnn"], state["dnn"],
-                                parts.emb_parts, train=train,
+                                _mlp_input(parts), train=train,
                                 dropout_rate=cfg.dropout, gen=gen)
         y_dnn = nn.dense(params["dnn_out"], h, activation=torch.relu)
         logits = nn.dense(params["final"],
                           torch.cat([y_1d, y_2d, y_dnn], dim=-1))
         return _squeeze_logits(logits), {"dnn": dnn_s}
 
-    return Model("deepfm", init, apply)
+    return Model("deepfm", init, apply, meta=base.meta)
+
+
+# ---------------------------------------------------------------------------
+# DCN — dcn/dcn.py:117-190
+# ---------------------------------------------------------------------------
+
+@register("dcn")
+def make_dcn(criteo: CriteoConfig = CriteoConfig(),
+             cfg: ModelConfig = ModelConfig(name="dcn", embedding_dim=16,
+                                            cross_layers=4)) -> Model:
+    """Deep & Cross: x0 = the flat field embeddings [B, F·D]; the cross
+    stack x_{l+1} = x0·(x_l⊤w) + x_l + b; the MLP tower over x0; logits =
+    dense(concat(tower, x_L)). The reference's unused linear branch is not
+    reproduced, as in the JAX package."""
+    base = _CriteoBase(criteo, cfg)
+    flat_dim = base.num_fields * cfg.embedding_dim
+
+    def init(gen: torch.Generator, device):
+        params = base.init_fused(gen, device)
+        params["cross"] = interactions.cross_init(gen, flat_dim,
+                                                  cfg.cross_layers, device)
+        mlp_p, mlp_s = nn.mlp_init(gen, flat_dim, cfg.deep_layers, cfg.use_bn,
+                                   device)
+        params["dnn"] = mlp_p
+        params["final"] = nn.dense_init(gen, cfg.deep_layers[-1] + flat_dim,
+                                        1, device)
+        return params, {"dnn": mlp_s}
+
+    def apply(params, state, batch, *, train=False, gen=None):
+        parts = base.lookup_parts(params, batch, train=train)
+        x0 = parts.emb_2d
+        xl = interactions.cross_apply(params["cross"], x0)
+        h, dnn_s = nn.mlp_apply(params["dnn"], state["dnn"], x0, train=train,
+                                dropout_rate=cfg.dropout, gen=gen)
+        logits = nn.dense(params["final"], torch.cat([h, xl], dim=-1))
+        return _squeeze_logits(logits), {"dnn": dnn_s}
+
+    return Model("dcn", init, apply, meta=base.meta)
 
 
 # ---------------------------------------------------------------------------
@@ -141,4 +234,58 @@ def make_xdeepfm(criteo: CriteoConfig = CriteoConfig(),
                           torch.cat([linear_y, cin_y, dnn_y], dim=-1))
         return _squeeze_logits(logits), {"dnn": dnn_s}
 
-    return Model("xdeepfm", init, apply)
+    return Model("xdeepfm", init, apply, meta=base.meta)
+
+
+# ---------------------------------------------------------------------------
+# DNN baseline (README.md:68-78: raw embeddings + a 100-100 tower)
+# ---------------------------------------------------------------------------
+
+@register("dnn")
+def make_dnn(criteo: CriteoConfig = CriteoConfig(),
+             cfg: ModelConfig = ModelConfig(name="dnn")) -> Model:
+    """logits = dense(MLP tower over the flat embeddings)."""
+    base = _CriteoBase(criteo, cfg)
+    flat_dim = base.num_fields * cfg.embedding_dim
+
+    def init(gen: torch.Generator, device):
+        params = base.init_fused(gen, device)
+        mlp_p, mlp_s = nn.mlp_init(gen, flat_dim, cfg.deep_layers, cfg.use_bn,
+                                   device)
+        params["dnn"] = mlp_p
+        params["final"] = nn.dense_init(gen, cfg.deep_layers[-1], 1, device)
+        return params, {"dnn": mlp_s}
+
+    def apply(params, state, batch, *, train=False, gen=None):
+        parts = base.lookup_parts(params, batch, train=train)
+        h, dnn_s = nn.mlp_apply(params["dnn"], state["dnn"], _mlp_input(parts),
+                                train=train, dropout_rate=cfg.dropout,
+                                gen=gen)
+        logits = nn.dense(params["final"], h)
+        return _squeeze_logits(logits), {"dnn": dnn_s}
+
+    return Model("dnn", init, apply, meta=base.meta)
+
+
+# ---------------------------------------------------------------------------
+# WideLinear — deep&wide/deep&wide.py:114-149 (the canned LinearClassifier
+# on the linear columns; the reference never builds the deep part)
+# ---------------------------------------------------------------------------
+
+@register("wide")
+def make_wide(criteo: CriteoConfig = CriteoConfig(),
+              cfg: ModelConfig = ModelConfig(name="wide")) -> Model:
+    """logits = Σ_f w[gid_f] + b over all fields (`table.linear_sum`).
+    ``meta['optimizer'] = 'ftrl'``: the reference's LinearClassifier is
+    FTRL-backed, and ``optim.for_model`` honours it."""
+    base = _CriteoBase(criteo, cfg)
+
+    def init(gen: torch.Generator, device):
+        return {"wide": emb_table.linear_init(gen, criteo.field_vocab_sizes,
+                                              device)}, {}
+
+    def apply(params, state, batch, *, train=False, gen=None):
+        logits = emb_table.linear_sum(params["wide"], base.gids(batch))
+        return _squeeze_logits(logits), state
+
+    return Model("wide", init, apply, meta=dict(base.meta, optimizer="ftrl"))

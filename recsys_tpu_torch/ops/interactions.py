@@ -1,9 +1,9 @@
 """Interaction ops (counterpart of ``recsys_tpu/ops/interactions.py``):
-the FM pairwise term from field sums, CIN, and DIN's target attention.
+the FM pairwise term from field sums, DCN's cross layers, CIN, and DIN's
+target attention.
 
 Shapes use B=batch, F=num fields, D=embedding dim, H=CIN feature maps,
-P=padded history length, K=DIN embedding dim. DCN's cross layers are not
-ported yet.
+P=padded history length, K=DIN embedding dim.
 """
 
 from __future__ import annotations
@@ -17,6 +17,29 @@ def fm_pairwise_from_sums(emb_sum: torch.Tensor,
                           emb_sq_sum: torch.Tensor) -> torch.Tensor:
     """0.5 · Σ_d [(Σ_f e_fd)² − Σ_f e_fd²] → [B, 1] from the [B, D] sums."""
     return 0.5 * (emb_sum.square() - emb_sq_sum).sum(dim=1, keepdim=True)
+
+
+# ---------------------------------------------------------------------------
+# DCN cross layers (dcn/dcn.py:132-142)
+# ---------------------------------------------------------------------------
+
+def cross_init(gen: torch.Generator, dim: int, num_layers: int, device,
+               dtype=torch.float32) -> list[dict]:
+    """Per layer a rank-1 weight ``w`` and a bias ``b``, both [dim] and both
+    glorot_normal, as in the reference (the bias too)."""
+    return [{"w": nn.glorot_normal(gen, (dim,), device, dtype),
+             "b": nn.glorot_normal(gen, (dim,), device, dtype)}
+            for _ in range(num_layers)]
+
+
+def cross_apply(params, x0: torch.Tensor) -> torch.Tensor:
+    """x_{l+1} = x0 · (x_l ⊤ w_l) + x_l + b_l over [B, dim]: plain PyTorch,
+    as the JAX package leaves it to XLA."""
+    xl = x0
+    for layer in params:
+        xw = xl @ layer["w"]                                  # [B]
+        xl = xw[:, None] * x0 + xl + layer["b"]
+    return xl
 
 
 # ---------------------------------------------------------------------------

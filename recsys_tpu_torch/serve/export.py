@@ -83,12 +83,13 @@ def _check_like(template, tree) -> list:
 class Servable:
     """Loaded inference endpoint on one device.
 
-    The Criteo models and DIN are ported; another model's servable raises
-    ``NotImplementedError``. ``device='cuda'`` needs a card and raises
-    without one; it never falls back to the CPU. On the card the table
-    reads run through the row-gather kernel (``ops.row_gather``) and
-    xDeepFM's CIN layers through the CIN kernel (``ops.cin_kernel``), on
-    the CPU through their plain versions. Every id of a request is checked
+    The Criteo models (the whole zoo, on either engine) and DIN are
+    ported; another model's servable raises ``NotImplementedError``. The
+    device is the card unless the caller asks for ``device='cpu'``:
+    ``cuda`` without a card raises, it never falls back to the CPU. On the
+    card the table reads run through the row-gather kernel
+    (``ops.row_gather``) and xDeepFM's CIN layers through the CIN kernel
+    (``ops.cin_kernel``), on the CPU through their plain versions. Every id of a request is checked
     on the host against its table: one out of range is a ``ValueError``
     (a 400 from the server) and never reaches a gather.
 
@@ -101,7 +102,7 @@ class Servable:
     update under a lock.
     """
 
-    def __init__(self, export_dir: str, device: str = "cpu"):
+    def __init__(self, export_dir: str, device: str = "cuda"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Servable(device='cuda'): no CUDA device is "

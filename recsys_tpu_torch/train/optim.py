@@ -1,5 +1,6 @@
-"""TF-parity Adam over parameter trees (counterpart of
-``recsys_tpu/train/optim.py``, Adam only).
+"""Optimizers over parameter trees (counterpart of
+``recsys_tpu/train/optim.py``): TF-parity Adam and FTRL-proximal, both
+updating in place, and `for_model`, the optimizer a model declares.
 
 ``tf.train.AdamOptimizer`` keeps a single ε outside the bias correction:
 
@@ -12,9 +13,9 @@ tables included: rows no example touched still decay their moments and
 move, as in the reference; a lazy (row-sparse) Adam would diverge from it
 after the first step.
 
-The state ``AdamState(count, mu, nu)`` mirrors the JAX one (``mu``/``nu``
-are trees shaped like the parameters), so checkpoints and the converter see
-the same structure.
+The states ``AdamState(count, mu, nu)`` and ``FtrlState(z, n)`` mirror the
+JAX ones (their trees are shaped like the parameters), so checkpoints and
+the converter see the same structure.
 """
 
 from __future__ import annotations
@@ -68,3 +69,50 @@ def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
         return params, state
 
     return Optimizer(init, update)
+
+
+class FtrlState(NamedTuple):
+    z: Any   # per-weight z accumulator
+    n: Any   # per-weight sum of squared gradients
+
+
+def ftrl(alpha: float = 0.1, beta: float = 1.0, l1: float = 1.0,
+         l2: float = 1.0) -> Optimizer:
+    """FTRL-proximal, dense over every parameter (ftrl/ftrl.py:153-181).
+    The parameters are the lazy weights derived from (z, n):
+
+        σ = (√(n + g²) − √n) / α,   z ← z + g − σ·w,   n ← n + g²
+        w = (sign(z)·l1 − z) / ((β + √n)/α + l2),  0 where |z| ≤ l1
+
+    ``update`` works IN PLACE, under ``torch.no_grad()``, like `adam`: it
+    overwrites the parameters, ``z`` and ``n`` and returns the same
+    objects."""
+
+    def init(params) -> FtrlState:
+        return FtrlState(z=tree_util.tree_map(torch.zeros_like, params),
+                         n=tree_util.tree_map(torch.zeros_like, params))
+
+    @torch.no_grad()
+    def update(grads, state: FtrlState, params):
+        for w, g, z, n in zip(tree_util.leaves(params),
+                              tree_util.leaves(grads),
+                              tree_util.leaves(state.z),
+                              tree_util.leaves(state.n)):
+            n_new = n + g * g
+            z.copy_(z + g - (n_new.sqrt() - n.sqrt()) / alpha * w)
+            n.copy_(n_new)
+            lazy = (torch.sign(z) * l1 - z) / ((beta + n.sqrt()) / alpha + l2)
+            w.copy_(torch.where(z.abs() <= l1, torch.zeros_like(lazy), lazy))
+        return params, state
+
+    return Optimizer(init, update)
+
+
+def for_model(model_meta: dict, learning_rate: float) -> Optimizer:
+    """The optimizer a model declares in ``Model.meta['optimizer']``: FTRL
+    for the wide model (the reference's LinearClassifier is FTRL-backed,
+    with TF's default l1 = l2 = 0: ``alpha=learning_rate``), TF-parity
+    Adam otherwise."""
+    if model_meta.get("optimizer") == "ftrl":
+        return ftrl(alpha=learning_rate, l1=0.0, l2=0.0)
+    return adam(learning_rate)

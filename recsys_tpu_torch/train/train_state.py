@@ -4,8 +4,8 @@
 One train step is the model's forward in train mode, the mean sigmoid
 cross-entropy, ``torch.autograd.grad`` over every parameter (the embedding
 tables' gradients come from `table.table_gather`'s backward, the segment-sum
-kernel on the card), and the in-place TF-parity Adam update of
-`optim.adam`. Parameters are plain tensors that do not require grad between
+kernel on the card), and the in-place update of the optimizer the model
+declares (`optim.for_model`: TF-parity Adam, FTRL for the wide model). Parameters are plain tensors that do not require grad between
 steps: each step differentiates through detached aliases of them, so eval
 and serving never build a graph.
 """
@@ -45,14 +45,22 @@ def sigmoid_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def create_train_state(model: Model, seed: int, learning_rate: float,
-                       device="cpu",
+                       device="cuda",
                        opt: optim.Optimizer | None = None):
     """(TrainState, optimizer): parameters drawn from a CPU generator seeded
     with ``seed`` (the same values on any device), then moved to
-    ``device``; the state's generator lives on ``device``."""
+    ``device``; the state's generator lives on ``device``. The device is
+    the card unless the caller asks for the CPU: ``cuda`` without a card
+    raises, it never falls back. The optimizer is ``opt``, or the one the
+    model declares (`optim.for_model`)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("create_train_state(device='cuda'): no CUDA "
+                           "device is available")
     params, model_state = model.init(torch.Generator().manual_seed(seed),
                                      device)
-    tx = opt if opt is not None else optim.adam(learning_rate)
+    tx = opt if opt is not None else optim.for_model(model.meta,
+                                                     learning_rate)
     return TrainState(params, model_state, tx.init(params),
                       torch.zeros((), dtype=torch.int32, device=device),
                       make_generator(seed + 1, device)), tx

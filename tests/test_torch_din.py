@@ -324,7 +324,7 @@ def test_port_export_predicts_the_same_in_jax(tmp_path):
                            factory_kwargs={"item_vocab": ITEMS,
                                            "cate_vocab": CATES})
     feats = _batch(n=11, seed=3, label=False)
-    got = export.Servable(str(tmp_path)).predict(feats)
+    got = export.Servable(str(tmp_path), device="cpu").predict(feats)
     ref = jexport.Servable(str(tmp_path), buckets=(16,)).predict(feats)
     np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
 
@@ -333,7 +333,7 @@ def test_port_export_predicts_the_same_in_jax(tmp_path):
     "item_high", "cate_high", "negative", "float", "missing", "hist_1d",
     "p0", "b_mismatch", "p_mismatch"])
 def test_servable_rejects_bad_din_requests(jax_export, bad):
-    sv = export.Servable(jax_export)
+    sv = export.Servable(jax_export, device="cpu")
     f = _batch(n=4, label=False)
     if bad == "item_high":
         f["hist_iid"][2, 1] = ITEMS
@@ -366,11 +366,11 @@ def test_other_non_criteo_servables_are_not_ported(tmp_path):
     with open(meta_path, "w") as f:
         f.write(text.replace('"model_name": "din"', '"model_name": "vae_cf"'))
     with pytest.raises(NotImplementedError):
-        export.Servable(d)
+        export.Servable(d, device="cpu")
 
 
 def test_rest_server_answers_400_on_an_out_of_range_id(jax_export):
-    sv = export.Servable(jax_export)
+    sv = export.Servable(jax_export, device="cpu")
     srv, batcher = server.make_rest_server(sv, 0)
     t = threading.Thread(target=srv.serve_forever, daemon=True)
     t.start()
@@ -432,7 +432,7 @@ def test_train_din_cli_round_trip(tmp_path, monkeypatch):
 
     out = train_din.main(["export", f"--export_dir={tmp_path / 'exp'}"]
                          + common)
-    sv = export.Servable(out["export_dir"])
+    sv = export.Servable(out["export_dir"], device="cpu")
     feats = sv._sample_features(5)
     got = sv.predict(feats)
     assert got.shape == (5,) and np.all((got >= 0) & (got <= 1))

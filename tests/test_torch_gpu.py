@@ -1,8 +1,9 @@
 """The port on the card: the CUDA kernels (CIN forward and backward,
-segment sum, row gather) against their plain versions at the shapes of
-full-width xDeepFM, DeepFM and DIN, autograd through them, servables on the
-card against the same servables on the CPU, and three training steps on the
-card against the same steps on the CPU. Every test here is marked ``gpu`` and skips
+segment sum, row gather, the reshape probes) against their plain versions
+at the shapes of full-width xDeepFM, DeepFM, DIN and the fused engine,
+autograd through them, servables on the card against the same servables on
+the CPU, and training steps of the zoo on the card against the same steps
+on the CPU. Every test here is marked ``gpu`` and skips
 without a CUDA device (the kernels have no CPU mode). This file imports
 neither jax nor the JAX package, so it also runs where jax is absent:
 
@@ -22,6 +23,7 @@ from recsys_tpu_torch.data.criteo import synthetic_criteo
 from recsys_tpu_torch.models.api import make_model
 from recsys_tpu_torch.data import amazon
 from recsys_tpu_torch.ops import cin_kernel
+from recsys_tpu_torch.ops import reshape_probe as rp
 from recsys_tpu_torch.ops import row_gather as rg
 from recsys_tpu_torch.ops import segment_sum as ss
 from recsys_tpu_torch.serve.export import Servable, export_servable
@@ -281,3 +283,72 @@ def test_three_din_steps_on_the_card_match_the_cpu(cuda_device):
     assert abs(l_cpu - l_gpu) <= 1e-5 * abs(l_cpu)
     for a, b in zip(tree_util.leaves(p_cpu), tree_util.leaves(p_gpu)):
         torch.testing.assert_close(b.cpu(), a, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("name,engine,reads,lr", [
+    ("dcn", "split", 2, 1e-3), ("deepfm", "fused", 1, 1e-3),
+    ("dnn", "fused", 1, 1e-3), ("fm", "split", 2, 1e-3),
+    ("wide", "split", 1, 4.0)])
+def test_zoo_steps_on_the_card_match_the_cpu(cuda_device, name, engine,
+                                             reads, lr):
+    """3 steps of each zoo model from one state on one [3, B] index matrix
+    at dropout 0, on the card and on the CPU: each step reads its tables
+    through ``reads`` row gathers and differentiates them through as many
+    segment sums (2 on the split engine, 1 on the fused one and for wide,
+    whose FTRL update runs at alpha 4). Tolerance 1e-4 on the parameters."""
+    ccfg = CriteoConfig(cat_vocabs=(50,) * 20 + (3000,) * 6)
+    mcfg = ModelConfig(name=name, embedding_dim=8, deep_layers=(32, 32),
+                       dropout=0.0, emb_engine=engine)
+    model = make_model(name, ccfg, mcfg)
+    data = synthetic_criteo(4096, ccfg)
+    idx = np.random.default_rng(0).integers(0, 4096, (3, 512))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        ts, tx = TS.create_train_state(model, 0, lr, dev)
+        counts = (rg.LAUNCHES, ss.LAUNCHES)
+        ts, loss = fast.make_scanned_train_step(model, tx)(
+            ts, fast.stage_dataset(data, dev), idx)
+        out[str(dev)] = (float(loss), ts.params)
+    assert (rg.LAUNCHES - counts[0], ss.LAUNCHES - counts[1]) == (3 * reads,
+                                                                  3 * reads)
+    (l_cpu, p_cpu), (l_gpu, p_gpu) = out["cpu"], out["cuda"]
+    assert abs(l_cpu - l_gpu) <= 1e-5 * abs(l_cpu)
+    for a, b in zip(tree_util.leaves(p_cpu), tree_util.leaves(p_gpu)):
+        torch.testing.assert_close(b.cpu(), a, rtol=0, atol=1e-4)
+
+
+def test_servable_defaults_to_the_card(cuda_device, tmp_path):
+    """``Servable(export_dir)`` with no device argument runs on the card:
+    a DCN request reads its two tables through the row gather."""
+    ccfg = CriteoConfig(cat_vocabs=(50,) * 20 + (3000,) * 6)
+    mcfg = ModelConfig(name="dcn", embedding_dim=8, deep_layers=(32, 32))
+    params, state = make_model("dcn", ccfg, mcfg).init(
+        torch.Generator().manual_seed(0), "cpu")
+    export_servable(str(tmp_path), "dcn", params, state, mcfg, ccfg)
+    sv = Servable(str(tmp_path))
+    assert sv.device.type == "cuda"
+    d = synthetic_criteo(300, ccfg)
+    feats = {"ids": d["ids"], "dense": d["dense"]}
+    before = (rg.LAUNCHES, ss.LAUNCHES)
+    got = sv.predict(feats)
+    assert (rg.LAUNCHES - before[0], ss.LAUNCHES - before[1]) == (2, 0)
+    ref = Servable(str(tmp_path), device="cpu").predict(feats)
+    np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("vp,w", [(837_632, 17), (1001, 17), (3, 1)])
+def test_reshape_probes_equal_their_plain_version(cuda_device, vp, w):
+    gen = torch.Generator().manual_seed(vp)
+    flat = torch.randn(vp * w, generator=gen).to(cuda_device)
+    before = (rp.VIA_RESHAPE_LAUNCHES, rp.VIA_2D_LAUNCHES)
+    got_flat = rp.via_reshape(flat, w)
+    got_2d = rp.via_2d(flat.view(vp, w))
+    torch.cuda.synchronize()
+    assert (rp.VIA_RESHAPE_LAUNCHES - before[0],
+            rp.VIA_2D_LAUNCHES - before[1]) == (1, 1)
+    want = rp.reshape_probe_reference(flat, w)
+    assert torch.equal(got_flat, want) and torch.equal(got_2d, want)
+    # 4 bytes off 16-byte alignment: the scalar path
+    shifted = flat[1:1 + (vp - 1) * w]
+    assert torch.equal(rp.via_reshape(shifted, w),
+                       rp.reshape_probe_reference(shifted, w))

@@ -30,7 +30,8 @@ def test_no_jax_or_recsys_tpu_import(path):
 def test_the_scan_sees_the_package():
     assert len(FILES) > 15
     for mod in ("models/din.py", "ops/row_gather.py", "data/amazon.py",
-                "tools/train_din.py"):
+                "tools/train_din.py", "models/ctr.py", "ops/reshape_probe.py",
+                "embeddings/engines.py", "train/optim.py"):
         assert ROOT / "recsys_tpu_torch" / mod in FILES, mod
     assert "torch" in set(_imports(ROOT / "recsys_tpu_torch" / "ops" /
                                    "cin_kernel.py"))

@@ -64,13 +64,13 @@ def test_port_export_predicts_the_same_in_jax(tmp_path):
     export.export_servable(str(tmp_path), "xdeepfm", params, state, TMCFG,
                            TCFG)
     feats = _features(19, start_row=50)
-    got = export.Servable(str(tmp_path)).predict(feats)
+    got = export.Servable(str(tmp_path), device="cpu").predict(feats)
     ref = jexport.Servable(str(tmp_path), buckets=(32,)).predict(feats)
     np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
 
 
 def test_servable_rejects_bad_requests(jax_export):
-    sv = export.Servable(jax_export)
+    sv = export.Servable(jax_export, device="cpu")
     feats = _features(3)
     bad = dict(feats, ids=feats["ids"].copy())
     bad["ids"][1, 30] = 3000          # field 30's vocab is 3000
@@ -89,7 +89,7 @@ def test_cuda_servable_raises_without_a_card(jax_export):
 
 @pytest.fixture
 def rest(jax_export):
-    sv = export.Servable(jax_export)
+    sv = export.Servable(jax_export, device="cpu")
     srv, batcher = server.make_rest_server(sv, 0)
     t = threading.Thread(target=srv.serve_forever, daemon=True)
     t.start()

@@ -141,7 +141,8 @@ def test_three_steps_match_jax(name):
 
 def test_train_on_device_drives_the_devgen_path():
     _, tm = _models("deepfm")
-    ts, tx = TS.create_train_state(tm, seed=0, learning_rate=1e-2)
+    ts, tx = TS.create_train_state(tm, seed=0, learning_rate=1e-2,
+                                   device="cpu")
     data, _ = _batch(2048)
     logged = []
     ts, loss = fast.train_on_device(
@@ -215,7 +216,8 @@ def test_convert_round_trips_the_adam_and_train_state():
 def test_checkpoint_paths_and_template_restore(tmp_path):
     jm, tm = _models("deepfm")
     jts, _ = JTS.create_train_state(jm, seed=0, learning_rate=1e-3)
-    ts, _ = TS.create_train_state(tm, seed=0, learning_rate=1e-3)
+    ts, _ = TS.create_train_state(tm, seed=0, learning_rate=1e-3,
+                                  device="cpu")
     jtree = (jts.params, jts.model_state, jts.opt_state)
     tree = convert.export_params((ts.params, ts.model_state, ts.opt_state))
     assert [p for p, _ in checkpoint.flatten(tree)] == [
@@ -239,7 +241,8 @@ def test_checkpoints_cross_between_the_packages(tmp_path):
     jtree = jax.tree.map(np.asarray,
                          (jts.params, jts.model_state, jts.opt_state))
     JCheckpoints(str(tmp_path / "jax")).save(5, jtree, metric=0.7)
-    ts, _ = TS.create_train_state(tm, seed=1, learning_rate=1e-3)
+    ts, _ = TS.create_train_state(tm, seed=1, learning_rate=1e-3,
+                                  device="cpu")
     ts = loop._resume(ts, checkpoint.CheckpointManager(str(tmp_path / "jax")))
     assert int(ts.step) == 5
     mine = (ts.params, ts.model_state, ts.opt_state)
@@ -277,7 +280,7 @@ def test_train_cli_on_the_cpu(tmp_path, capsys):
     ["train", "--streaming", "--device=cpu"],
     ["train", "--device=cpu", "--hbm_data_budget=1", "--data_dir=DATA"],
     ["train", "--device=tpu"],
-    ["train", "--device=cpu", "--model.name=dcn"],
+    ["train", "--device=cpu", "--model.name=autoint"],
     ["eval", "--device=cpu"],
 ])
 def test_train_cli_refuses_what_is_not_ported(argv, tmp_path):
