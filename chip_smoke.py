@@ -28,9 +28,15 @@ without the package beside it. On a card it
    - segment sum: the big (837,632 rows) and small (4,096 rows) tables of
      DeepFM at batch 16384 with the engine's own ids, the fused engine's
      one table (638,976 ids into 840,704 × 17) and the wide model's
-     weights (the same ids into 840,704 × 1), a ragged N, one id for every
-     update, and N = 0 (tolerance 1e-5 of the row's Σ|g|: sums in another
-     order), bitwise equal across two calls, timed at batch 16384;
+     weights (the same ids into 840,704 × 1), ragged N at W = 1, 8, 16,
+     17, 32, 33, a power-of-two table whose last row is hit, ids out of
+     range (dropped: held against the plain version of the ids in range),
+     one id for every update, and N = 0 (tolerance 1e-5 of the row's Σ|g|:
+     sums in another order), bitwise equal across two calls and after a
+     CUDA-graph replay; timed at batch 16384 as device time in a CUDA
+     graph and back to back, beside ``index_add_`` into a zeroed buffer and
+     the whole function ``torch.zeros(rows, W).index_add_(…)``, with each
+     device operation's time per call from ``torch.profiler``;
    - row gather: bitwise equal to ``index_select`` (a copy is exact) at
      DIN's item (63,002×32) and category (802×32) tables with 33,792 ids
      (B = 1024, P = 32, plus the targets), the Criteo big and small tables
@@ -51,9 +57,9 @@ without the package beside it. On a card it
    JSON, NPZ1, RAW1), every answer within 1e-4 of the CPU servable, each
    xDeepFM request launching the CIN forward 3 times and the row gather
    twice, each DCN request the row gather twice, each DIN request the row
-   gather 4 times, and none the segment sum; a request with an id out of
-   range gets a 400 and the server keeps answering; then ``train_ctr
-   serve`` and ``train_din serve`` (``--device=cuda``) from the command
+   gather 5 times (its item bias too), and none the segment sum; a request
+   with an id out of range gets a 400 and the server keeps answering; then
+   ``train_ctr serve`` and ``train_din serve`` (``--device=cuda``) from the command
    line each answer one request;
 4. training, full width at batch 16384 (xDeepFM at 4096) through
    ``fast.make_scanned_train_step_devgen`` in calls of K = 50 on a
@@ -75,7 +81,7 @@ without the package beside it. On a card it
    attention 80-40, MLP 100-50-20, dropout 0.1, Adam lr 1e-3) at batch
    1024 through ``loop.train_and_evaluate`` on host-fed batches of
    ``synthetic_din_hard`` (40,000 users), 300 steps: the loss must fall,
-   each step must launch the segment sum 4 times and the row gather 4
+   each step must launch the segment sum 5 times and the row gather 5
    times, the held-out AUC must beat the untrained model's by 0.02, the
    tables' gradients on the card must be non-zero, and 3 steps at dropout
    0 must match the CPU within 1e-4;
@@ -325,12 +331,34 @@ def _segment_sum_bytes(n: int, w: int, rows: int) -> int:
     return 8 * n + 4 * n * w + 4 * rows * w
 
 
+def _device_breakdown(fn, calls: int = 10) -> list:
+    """[(device operation, ms per call, launches per call)] of ``fn`` under
+    ``torch.profiler`` over ``calls`` calls, the costliest first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from recsys_tpu_torch.tools.profile_step import _device_time_us
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = [(evt.key[:70], _device_time_us(evt) / 1e3 / calls,
+            evt.count / calls) for evt in prof.key_averages()
+           if evt.device_type == DeviceType.CUDA]
+    return sorted(out, key=lambda r: -r[1])
+
+
 def segment_sum_phase(ss, ccfg, dev) -> dict:
     """Segment-sum kernel vs plain version on the card, timed at batch
-    16384 (sort included) at each engine's shapes: the split engine's two
-    tables, the fused engine's one, the wide model's weights. → numbers of
-    the fused engine's shape (the slice's main path) plus every timed
-    shape under ``shapes``."""
+    16384 at each engine's shapes: the split engine's two tables, the fused
+    engine's one, the wide model's weights; plus widths 1 to 33, a ragged N,
+    one id for every update, N = 0, a power-of-two table whose last row is
+    hit, ids out of range (dropped), and the call replayed in a CUDA graph.
+    → numbers of the fused engine's shape (the slice's main path) plus every
+    timed shape under ``shapes``."""
     from recsys_tpu_torch.core.config import EmbeddingConfig
     from recsys_tpu_torch.data.criteo import synthetic_criteo
     from recsys_tpu_torch.embeddings import engines
@@ -349,13 +377,26 @@ def segment_sum_phase(ss, ccfg, dev) -> dict:
         g = torch.randn(gids.shape[0], 17, generator=gen).to(dev)
         cases.append((f"split {name} table B=16384", gids, g, rows, True))
     gids = (ids + torch.as_tensor(fused.offsets, device=dev)).reshape(-1)
+    fused_case = None
     for label, w in (("fused table B=16384", 17), ("wide weights B=16384", 1)):
         g = torch.randn(gids.shape[0], w, generator=gen).to(dev)
         cases.append((label, gids, g, fused.v_pad, True))
-    g = torch.randn(RAGGED_N, 17, generator=gen).to(dev)
-    cases.append(("ragged", torch.randint(0, 1000, (RAGGED_N,),
-                                          generator=gen).to(dev), g, 1000,
-                  False))
+        fused_case = fused_case or (gids, g, fused.v_pad)
+    for w in (1, 8, 16, 17, 32, 33):
+        g = torch.randn(RAGGED_N, w, generator=gen).to(dev)
+        cases.append((f"ragged W={w}", torch.randint(
+            0, 1000, (RAGGED_N,), generator=gen).to(dev), g, 1000, False))
+    hot = (4096 * torch.rand(50_000, generator=gen) ** 2.2).long()
+    hot[:3] = 4095
+    cases.append(("power-of-two table, last row hit", hot.clamp_(max=4095)
+                  .to(dev), torch.randn(50_000, 17, generator=gen).to(dev),
+                  4096, False))
+    wild = torch.randint(-50, 1050, (20_000,), generator=gen)
+    wild[::7], wild[::11] = 2 ** 40, -(2 ** 40)
+    for w in (1, 17):
+        cases.append((f"ids out of range W={w}", wild.to(dev),
+                      torch.randn(20_000, w, generator=gen).to(dev), 1000,
+                      False))
     g = torch.randn(409_600, 17, generator=gen).to(dev)
     cases.append(("one id", torch.zeros(409_600, dtype=torch.int64,
                                         device=dev), g, 4096, False))
@@ -365,8 +406,9 @@ def segment_sum_phase(ss, ccfg, dev) -> dict:
     max_abs, shapes = 0.0, {}
     for label, gids, g, rows, timed in cases:
         got = ss.segment_sum(gids, g, rows)
-        ref = ss.segment_sum_reference(gids, g, rows)
-        scale = ss.segment_sum_reference(gids, g.abs(), rows)
+        keep = (gids >= 0) & (gids < rows)     # the kernel drops the rest
+        ref = ss.segment_sum_reference(gids[keep], g[keep], rows)
+        scale = ss.segment_sum_reference(gids[keep], g[keep].abs(), rows)
         torch.cuda.synchronize()
         err = (got - ref).abs()
         ok = bool(torch.isfinite(got).all()) and bool(
@@ -379,24 +421,73 @@ def segment_sum_phase(ss, ccfg, dev) -> dict:
                 f"{err.max().item() if err.numel() else 0.0:.3e} "
                 f"bitwise_repeat={same}")
         if timed:
-            k_ms, p_ms = _timed_pair(
-                lambda: ss.segment_sum(gids, g, rows),
-                lambda: ss.segment_sum_reference(gids, g, rows), 50)
+            w = g.shape[1]
+
+            def kern():
+                return ss.segment_sum(gids, g, rows)
+
+            def plain():
+                return ss.segment_sum_reference(gids, g, rows)
+
             buf = torch.zeros_like(got)
-            lib_ms = _cuda_ms(lambda: buf.index_add_(0, gids, g), 50)
-            b_ms, b_by = _bound(_segment_sum_bytes(gids.shape[0], g.shape[1],
-                                                   rows),
-                                gids.shape[0] * g.shape[1])
-            shapes[label] = {"ms": k_ms, "plain_ms": p_ms,
-                             "library_ms": lib_ms, "bound_ms": b_ms,
-                             "bound_by": b_by}
-            line += (f" kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-                     f"index_add_ms={lib_ms:.4f} bound_ms={b_ms:.4f}")
+
+            def index_add():
+                return buf.index_add_(0, gids, g)
+
+            def zeros_index_add():
+                return torch.zeros((rows, w), device=dev).index_add_(
+                    0, gids, g)
+
+            b2b_ms, b2b_plain_ms = _timed_pair(kern, plain, 50)
+            t = [_graph_ms(f) for f in (plain, kern, kern, plain)]
+            k_ms, p_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+            lib_ms = _graph_ms(index_add)
+            whole_ms = _graph_ms(zeros_index_add)
+            lib_b2b_ms = _cuda_ms(index_add, 50)
+            whole_b2b_ms = _cuda_ms(zeros_index_add, 50)
+            b_ms, b_by = _bound(_segment_sum_bytes(gids.shape[0], w, rows),
+                                gids.shape[0] * w)
+            parts = _device_breakdown(kern)
+            shapes[label] = {
+                "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+                "zeros_index_add_ms": whole_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "back_to_back_ms": b2b_ms,
+                "back_to_back_plain_ms": b2b_plain_ms,
+                "back_to_back_index_add_ms": lib_b2b_ms,
+                "back_to_back_zeros_index_add_ms": whole_b2b_ms,
+                "breakdown": [[k, round(ms, 5), n] for k, ms, n in parts]}
+            line += (f"\n  device (CUDA graph): kernel_ms={k_ms:.4f} "
+                     f"plain_ms={p_ms:.4f} index_add_ms={lib_ms:.4f} "
+                     f"zeros_index_add_ms={whole_ms:.4f} bound_ms="
+                     f"{b_ms:.4f}\n  back to back: kernel_ms={b2b_ms:.4f} "
+                     f"plain_ms={b2b_plain_ms:.4f} index_add_ms="
+                     f"{lib_b2b_ms:.4f} zeros_index_add_ms="
+                     f"{whole_b2b_ms:.4f}\n  per call on the device: "
+                     + "; ".join(f"{k} {ms:.4f} ms x{n:g}"
+                                 for k, ms, n in parts))
         print(line, flush=True)
         _check(ok, f"segment-sum kernel disagrees with its plain version "
                    f"({label})")
         _check(same, f"segment-sum kernel not bitwise deterministic "
                      f"({label})")
+
+    # the whole call captured in a CUDA graph and replayed on new gradients
+    gids, g, rows = fused_case
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ss.segment_sum(gids, g, rows)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ss.segment_sum(gids, g, rows)
+    g.copy_(torch.randn(g.shape, generator=gen))
+    graph.replay()
+    torch.cuda.synchronize()
+    _check(torch.equal(out, ss.segment_sum(gids, g, rows)),
+           "segment sum replayed in a CUDA graph differs from an eager call")
+    print("segment sum fused table: captured in a CUDA graph, replayed on "
+          "new gradients, bitwise equal to an eager call", flush=True)
     return dict(shapes["fused table B=16384"], max_abs_err=max_abs,
                 shapes=shapes)
 
@@ -870,9 +961,9 @@ def train_phase(name, ccfg, mcfg, batch_size, dev, cin_kernel, ss, rg, *,
     ss.LAUNCHES = rg.LAUNCHES = cin_kernel.LAUNCHES = 0
     cin_kernel.BWD_LAUNCHES = 0
     losses, t_calls = [], []
-    for _ in range(TRAIN_STEPS // K):        # the training path starts here
+    for c in range(TRAIN_STEPS // K):        # the training path starts here
         t0 = time.perf_counter()
-        ts, loss = step_fn(ts, staged, K)
+        ts, loss = step_fn(ts, staged, K, c * K)
         losses.append(float(loss))           # one host read per call
         t_calls.append(time.perf_counter() - t0)
     counts = {"segment_sum": ss.LAUNCHES, "row_gather": rg.LAUNCHES,
@@ -1020,13 +1111,13 @@ def din_train_phase(train, evald, dev, rg, ss) -> dict:
            f"DIN: loss {m['first_loss']} -> {m['final_loss']}")
     _check(m["final_loss"] < m["first_loss"],
            f"DIN: loss did not fall: {m['first_loss']} -> {m['final_loss']}")
-    _check(counts["segment_sum"] == 4 * DIN_STEPS,
+    _check(counts["segment_sum"] == 5 * DIN_STEPS,
            f"DIN: {counts['segment_sum']} segment-sum launches for "
-           f"{DIN_STEPS} steps, want {4 * DIN_STEPS}")
-    _check(counts["row_gather"] == 4 * (DIN_STEPS + n_eval),
+           f"{DIN_STEPS} steps, want {5 * DIN_STEPS}")
+    _check(counts["row_gather"] == 5 * (DIN_STEPS + n_eval),
            f"DIN: {counts['row_gather']} row-gather launches for "
            f"{DIN_STEPS} steps and {n_eval} eval batches, want "
-           f"{4 * (DIN_STEPS + n_eval)}")
+           f"{5 * (DIN_STEPS + n_eval)}")
     _check(m["auc"] >= auc0 + AUC_MARGIN,
            f"DIN: eval AUC {m['auc']} after training, {auc0} before")
     _check(f"step_{DIN_STEPS}" in ckpts, f"DIN: checkpoints {ckpts}")
@@ -1206,7 +1297,7 @@ def main() -> None:
         served["din"] = serving_phase(
             export_dir, reqs, bad, "din",
             {"row_gather": rg, "segment_sum": ss},
-            {"row_gather": 4, "segment_sum": 0})
+            {"row_gather": 5, "segment_sum": 0})
         serve_cli_phase("train_din", export_dir, reqs[200])
     print("served p50 latency (REST, RAW1, one request at a time): "
           + "; ".join(f"{name} " + ", ".join(
@@ -1266,8 +1357,10 @@ def main() -> None:
          "replaces": "recsys_tpu/ops/pallas_kernels.py:334",
          "also_replaces": "recsys_tpu/ops/pallas_kernels.py:154",
          "note": "launches: fused-engine DeepFM training (one per step, "
-                 "the :154 contract's FusedGatherEngine caller); ms: the "
-                 "fused table at B=16384 (638,976 ids into 840,704 x 17); "
+                 "the :154 contract's FusedGatherEngine caller); ms, "
+                 "plain_ms, library_ms (index_add_ into a zeroed buffer): "
+                 "device time in a CUDA graph at the fused table at "
+                 "B=16384 (638,976 ids into 840,704 x 17); "
                  "launches elsewhere: "
                  + ", ".join(f"{k} {v['counts']['segment_sum']}"
                              for k, v in trained.items())
@@ -1278,7 +1371,7 @@ def main() -> None:
         {"name": "row_gather", "route": "cuda",
          "source": "recsys_tpu_torch/csrc/row_gather.cu",
          "replaces": "scratch/rowdma_kernel.py:72",
-         "note": "launches: DIN training (4 per step plus eval); "
+         "note": "launches: DIN training (5 per step plus eval); "
                  f"fused-engine DeepFM training {fused['row_gather']} (one "
                  "per step); ms: device time in a CUDA graph, DIN item table "
                  "at B=1024 plus Criteo big table at B=16384; the plain "

@@ -60,13 +60,15 @@ def export_params(tree):
 def convert_train_state(jax_ts, device="cpu"):
     """A JAX ``TrainState(params, model_state, opt_state, step, rng)`` given
     as numpy arrays (the key as its ``jax.random.key_data``) → the port's
-    ``TrainState`` on ``device``. The port's dropout generator is seeded
-    from the key's bits: the two frameworks draw different numbers anyway."""
+    ``TrainState`` on ``device``. The port's root seed (and its dropout
+    generator) comes from the key's bits: the two frameworks draw different
+    numbers anyway."""
     params, model_state, opt_state, step, rng = jax_ts
-    seed = int.from_bytes(np.asarray(rng, np.uint32).tobytes(), "little")
+    seed = int.from_bytes(np.asarray(rng, np.uint32).tobytes(),
+                          "little") % (1 << 63)
     return TrainState(
         params=convert_params(params, device),
         model_state=convert_params(model_state, device),
         opt_state=convert_params(opt_state, device),
         step=torch.tensor(int(step), dtype=torch.int32, device=device),
-        rng=make_generator(seed % (1 << 63), device))
+        rng=make_generator(seed, device), seed=seed)

@@ -8,9 +8,10 @@ with P the padded history length (a bucket of the loader) and id 0 the
 padding, masked in the attention.
 
 - item bias table [item_vocab], zero at init, added to the logits;
-- item and category tables glorot_normal, each read through
-  `table.table_gather` (four reads per batch: the target's and the
-  history's item and category). On the card their forward is the row-gather
+- item and category tables glorot_normal. Every table is read through
+  `table.table_gather` (five reads per batch: the target's and the
+  history's item and category, and the target's bias from the ``[V, 1]``
+  view of the bias vector). On the card their forward is the row-gather
   kernel and their backward the segment-sum kernel;
 - per-position attention MLP (80, 40 → 1) over [hist, query, hist⊙query,
   hist−query] with dropout, masked weighted-sum pooling;
@@ -75,9 +76,11 @@ def make_din(item_vocab: int = ITEM_VOCAB, cate_vocab: int = CATE_VOCAB,
         h, mlp_s = nn.mlp_apply(params["mlp"], state["mlp"], net, train=train,
                                 dropout_rate=cfg.dropout, gen=gen)
         logits = nn.dense(params["final"], h)[:, 0]
-        # the bias is a [V] vector read once per example: a plain take, as
-        # the JAX package leaves it outside its Pallas kernels
-        logits = logits + params["item_bias"].index_select(0, batch["i_id"])
+        # the [V] bias is read as a [V, 1] table, like the wide weights
+        # (`table.linear_sum`): the row gather forward, the segment sum
+        # backward, so its gradient is bitwise repeatable on the card
+        logits = logits + emb_table.table_gather(
+            params["item_bias"].view(-1, 1), batch["i_id"])[:, 0]
         return logits, {"mlp": mlp_s}
 
     def sample_features(n: int, hist_len: int = 32) -> dict:

@@ -6,13 +6,17 @@ scatters in ``recsys_tpu/ops/pallas_kernels.py``: ``embedding_grad_T`` and
     segment_sum(ids [N], grads [N, W], num_rows) -> [num_rows, W] float32
     out[v] = Σ_{i: ids[i] = v} grads[i]
 
-For CUDA tensors the flat ids are sorted with ``torch.sort(stable=True)``
-(outside the kernel, as ``embedding_grad_T`` sorts outside its Pallas body)
-and the per-row sum is the hand-written kernel ``csrc/segment_sum.cu``
-(whose header says what bounds it on the H100 and how its design answers).
-It writes every touched row once, without atomics, so two calls give
-bitwise-equal results; untouched rows are zero. For CPU tensors the wrapper
-takes the plain version, ``index_add_`` into zeros.
+For CUDA tensors the whole sum is one call into ``csrc/segment_sum.cu``
+(whose header says what bounds it on the H100 and how its design answers):
+it zeroes the output, turns the ids into 32-bit keys, sorts them stably over
+only the bits a row id can have (`key_bits`), and sums each row's run with
+the hand-written kernels. The wrapper allocates the output and one
+workspace with ``torch.empty`` (the workspace's size is asked of the C side
+once per shape) and launches nothing else, so the call can be captured in a
+CUDA graph. Every touched row is written once, without atomics, so two
+calls give bitwise-equal results; untouched rows are zero, and an id
+outside ``[0, num_rows)`` adds nothing. For CPU tensors the wrapper takes
+the plain version, ``index_add_`` into zeros (which raises on such an id).
 """
 
 from __future__ import annotations
@@ -25,22 +29,38 @@ import torch
 from recsys_tpu_torch.ops import cuda_build
 
 SOURCE = cuda_build.source("segment_sum.cu")
-CHUNK = 128   # sorted entries per warp (csrc/segment_sum.cu)
+#: The kernel's int32 limits: at most MAX_IDS ids, at most MAX_ROWS rows
+#: (the out-of-range sentinel is ``num_rows`` itself).
+MAX_IDS = 2 ** 31 - 1
+MAX_ROWS = 2 ** 31 - 2
 
 #: Kernel launches made by `segment_sum` (a plain count; read it to show that
 #: a run went through the kernel, reset it by assigning 0).
 LAUNCHES = 0
 _count_lock = threading.Lock()
+#: workspace bytes by (n, w, end_bit)
+_workspace: dict[tuple[int, int, int], int] = {}
 
 
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.load(SOURCE)
-    if lib.segment_sum_sorted.argtypes is None:
-        lib.segment_sum_sorted.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int,
-                                     ctypes.c_longlong, ctypes.c_void_p])
-        lib.segment_sum_sorted.restype = ctypes.c_int
+    if lib.segment_sum.argtypes is None:
+        lib.segment_sum.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_ulonglong, ctypes.c_longlong,
+                                     ctypes.c_int, ctypes.c_longlong,
+                                     ctypes.c_int, ctypes.c_void_p])
+        lib.segment_sum.restype = ctypes.c_int
+        lib.segment_sum_workspace_bytes.argtypes = [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_ulonglong)]
+        lib.segment_sum_workspace_bytes.restype = ctypes.c_int
     return lib
+
+
+def key_bits(num_rows: int) -> int:
+    """Bits the sort keys need for a table of ``num_rows`` rows: keys run
+    over ``0..num_rows``, the last one the sentinel of ids out of range."""
+    return int(num_rows).bit_length()
 
 
 def segment_sum_reference(ids: torch.Tensor, grads: torch.Tensor,
@@ -59,14 +79,30 @@ def _check(ids: torch.Tensor, grads: torch.Tensor, num_rows: int) -> None:
         raise TypeError(f"segment_sum: ids are {ids.dtype}, want int64")
     if grads.dtype != torch.float32:
         raise TypeError(f"segment_sum: grads are {grads.dtype}, want float32")
-    if not grads.is_contiguous():
-        raise ValueError("segment_sum: grads are not contiguous")
+    if not grads.is_contiguous() or not ids.is_contiguous():
+        raise ValueError("segment_sum: ids and grads must be contiguous")
     if ids.device != grads.device:
         raise ValueError(f"segment_sum: ids on {ids.device}, grads on "
                          f"{grads.device}")
     if num_rows <= 0 or grads.shape[1] == 0:
         raise ValueError(f"segment_sum: {num_rows} rows of width "
                          f"{grads.shape[1]}")
+    if ids.shape[0] > MAX_IDS or num_rows > MAX_ROWS:
+        raise ValueError(f"segment_sum: {ids.shape[0]} ids into {num_rows} "
+                         f"rows; the kernel takes at most {MAX_IDS} ids and "
+                         f"{MAX_ROWS} rows (32-bit keys and positions)")
+
+
+def _workspace_bytes(lib: ctypes.CDLL, n: int, w: int, end_bit: int) -> int:
+    key = (n, w, end_bit)
+    size = _workspace.get(key)
+    if size is None:
+        out = ctypes.c_ulonglong()
+        err = lib.segment_sum_workspace_bytes(n, w, end_bit,
+                                              ctypes.byref(out))
+        cuda_build.check(lib, err, "segment_sum_workspace_bytes")
+        size = _workspace[key] = out.value
+    return size
 
 
 def segment_sum(ids: torch.Tensor, grads: torch.Tensor,
@@ -74,8 +110,8 @@ def segment_sum(ids: torch.Tensor, grads: torch.Tensor,
     """Σ of ``grads`` rows per id → ``[num_rows, W]`` float32.
 
     CUDA tensors go through the kernel; the call raises if it cannot launch.
-    CPU tensors go through `segment_sum_reference`. Ids must lie in
-    ``[0, num_rows)``; the kernel writes no row outside the table."""
+    CPU tensors go through `segment_sum_reference`. On the card an id
+    outside ``[0, num_rows)`` adds nothing; callers keep such ids away."""
     global LAUNCHES
     _check(ids, grads, num_rows)
     if ids.device.type == "cpu":
@@ -83,21 +119,18 @@ def segment_sum(ids: torch.Tensor, grads: torch.Tensor,
     if ids.device.type != "cuda":
         raise ValueError(f"segment_sum: no kernel for device {ids.device}")
     n, w = grads.shape
-    out = torch.zeros((num_rows, w), dtype=torch.float32, device=ids.device)
-    if n == 0:
-        return out
-    sid, order = torch.sort(ids, stable=True)
-    n_chunks = -(-n // CHUNK)
-    head = torch.empty((n_chunks, w), dtype=torch.float32, device=ids.device)
-    tail = torch.empty_like(head)
+    end_bit = key_bits(num_rows)
     lib = _lib()
+    out = torch.empty((num_rows, w), dtype=torch.float32, device=ids.device)
+    ws = torch.empty((_workspace_bytes(lib, n, w, end_bit),),
+                     dtype=torch.uint8, device=ids.device)
     with torch.cuda.device(ids.device):
         stream = torch.cuda.current_stream(ids.device).cuda_stream
-        err = lib.segment_sum_sorted(
-            sid.data_ptr(), order.data_ptr(), grads.data_ptr(),
-            out.data_ptr(), head.data_ptr(), tail.data_ptr(), n, w, num_rows,
-            stream)
-    cuda_build.check(lib, err, "segment_sum_sorted")
-    with _count_lock:
-        LAUNCHES += 1
+        err = lib.segment_sum(ids.data_ptr(), grads.data_ptr(),
+                              out.data_ptr(), ws.data_ptr(), ws.numel(), n, w,
+                              num_rows, end_bit, stream)
+    cuda_build.check(lib, err, "segment_sum")
+    if n:
+        with _count_lock:
+            LAUNCHES += 1
     return out

@@ -89,9 +89,10 @@ class Servable:
     ``cuda`` without a card raises, it never falls back to the CPU. On the
     card the table reads run through the row-gather kernel
     (``ops.row_gather``) and xDeepFM's CIN layers through the CIN kernel
-    (``ops.cin_kernel``), on the CPU through their plain versions. Every id of a request is checked
-    on the host against its table: one out of range is a ``ValueError``
-    (a 400 from the server) and never reaches a gather.
+    (``ops.cin_kernel``), on the CPU through their plain versions. Every
+    id of a request is checked on the host against its table (`check`):
+    one out of range is a ``ValueError`` (a 400 from the server) and never
+    reaches a gather.
 
     Thread-safety contract: `predict` MUST be safe to call concurrently
     from several threads; the server's micro-batcher runs it on the
@@ -140,7 +141,7 @@ class Servable:
                            "hist_iid": items, "hist_cate": cates}
         self._predict = make_predict_step(self.model)
 
-    def _din_batch(self, features: dict[str, np.ndarray]) -> dict:
+    def _check_din(self, features: dict[str, np.ndarray]) -> dict:
         """DIN's four features, checked: ``i_id``/``i_cate`` [B],
         ``hist_iid``/``hist_cate`` [B, P] with P ≥ 1, integers within their
         table's vocab."""
@@ -161,12 +162,17 @@ class Servable:
         if len({s[0] for s in shapes.values()}) != 1 or \
                 shapes["hist_iid"] != shapes["hist_cate"]:
             raise ValueError(f"DIN feature shapes {shapes} do not agree")
-        return {k: torch.from_numpy(v.astype(np.int64)).to(self.device)
-                for k, v in out.items()}
+        return out
 
-    def _batch(self, features: dict[str, np.ndarray]) -> dict:
+    def check(self, features: dict[str, np.ndarray]) -> dict:
+        """The request's features as numpy arrays, checked on the host:
+        names, shapes, and integer ids within their tables (an id out of
+        range is a ``ValueError`` and never reaches a gather). `predict`
+        runs it before every device call, and the server's micro-batcher on
+        each caller's thread before it queues the request, so a bad request
+        fails alone."""
         if self.criteo_cfg is None:
-            return self._din_batch(features)
+            return self._check_din(features)
         ids = np.asarray(features["ids"])
         # RAW1 bodies arrive as read-only views; torch wants writable memory
         dense = np.require(features["dense"], np.float32, ["C", "W"])
@@ -181,10 +187,13 @@ class Servable:
         if ids.dtype.kind not in "iu" or (
                 ids.size and (ids.min() < 0 or (ids >= self._vocab).any())):
             raise ValueError("ids must be integers in [0, field vocab)")
-        return {
-            "ids": torch.from_numpy(ids.astype(np.int64)).to(self.device),
-            "dense": torch.from_numpy(dense).to(self.device),
-        }
+        return {"ids": ids, "dense": dense}
+
+    def _batch(self, features: dict[str, np.ndarray]) -> dict:
+        """`check`ed features as tensors on the device, ids as int64."""
+        return {k: torch.from_numpy(v.astype(np.int64) if v.dtype.kind in "iu"
+                                    else v).to(self.device)
+                for k, v in self.check(features).items()}
 
     def predict(self, features: dict[str, np.ndarray]) -> np.ndarray:
         """features → probs [B] float32 (the "prob" serving output)."""

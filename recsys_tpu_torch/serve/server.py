@@ -35,7 +35,9 @@ class _MicroBatcher:
 
     Batching is opportunistic: a request never waits for company; whatever
     is already queued when the worker picks up a request rides the same
-    device call, up to ``MAX_BATCH`` rows."""
+    device call, up to ``MAX_BATCH`` rows. Each request is checked
+    (`Servable.check`) on its caller's thread before it is queued or run
+    inline, so an invalid one raises to its own caller only."""
 
     MAX_BATCH = 4096
 
@@ -54,9 +56,12 @@ class _MicroBatcher:
         # empty, so requests fall through to the coalescing worker.
         if self.q.empty() and self._inline.acquire(blocking=False):
             try:
-                return self.servable.predict(features)
+                return self.servable.predict(features)   # checks them first
             finally:
                 self._inline.release()
+        # checked here, on the caller's thread, so that a bad request fails
+        # alone and never reaches the group it would be coalesced with
+        self.servable.check(features)
         ev = threading.Event()
         slot: dict = {"features": features, "event": ev}
         self.q.put(slot)

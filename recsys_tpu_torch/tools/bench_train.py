@@ -53,12 +53,12 @@ def main(argv: list[str] | None = None) -> dict:
     step_fn = fast.make_scanned_train_step_devgen(
         model, tx, len(data["label"]), batch_size)
 
-    ts, loss = step_fn(ts, staged, K)    # warm-up: builds the kernels
+    ts, loss = step_fn(ts, staged, K, 0)  # warm-up: builds the kernels
     float(loss)
     calls = max(1, -(-steps // K))       # ceil: honour the requested steps
     t0 = time.perf_counter()
-    for _ in range(calls):
-        ts, loss = step_fn(ts, staged, K)
+    for c in range(calls):
+        ts, loss = step_fn(ts, staged, K, K * (c + 1))
     final_loss = float(loss)             # waits for the last step
     dt = time.perf_counter() - t0
     if not np.isfinite(final_loss):

@@ -17,6 +17,9 @@ JSON line per model:
   summed device time of the kernels, copies and fills the profiler saw,
   per step; ``device_idle_share`` = 1 − busy / ``step_ms``;
 - ``launch_calls_per_step``: host ``cudaLaunchKernel`` calls per step;
+- ``radix_sort_ms_per_step``: the device time per step of the radix
+  sort's kernels (those whose name holds ``RadixSort``: the segment sums'
+  key sorts);
 - ``top``: the five device operations with the most time per step.
 
 Without a CUDA card it fails.
@@ -78,24 +81,26 @@ def profile_model(name: str, engine: str, batch_size: int) -> dict:
     step_fn = fast.make_scanned_train_step_devgen(
         model, tx, len(data["label"]), batch_size)
 
-    ts, loss = step_fn(ts, staged, WARMUP_STEPS)
+    ts, loss = step_fn(ts, staged, WARMUP_STEPS, 0)
     float(loss)
     t0 = time.perf_counter()
-    ts, loss = step_fn(ts, staged, TIMED_STEPS)
+    ts, loss = step_fn(ts, staged, TIMED_STEPS, WARMUP_STEPS)
     float(loss)                              # waits for the last step
     step_ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        ts, loss = step_fn(ts, staged, PROFILED_STEPS)
+        ts, loss = step_fn(ts, staged, PROFILED_STEPS,
+                           WARMUP_STEPS + TIMED_STEPS)
         float(loss)
         torch.cuda.synchronize()
-    ops, busy_us, launches, per_op = 0, 0.0, 0, []
+    ops, busy_us, sort_us, launches, per_op = 0, 0.0, 0.0, 0, []
     for evt in prof.key_averages():
         if evt.device_type == DeviceType.CUDA:
             us = _device_time_us(evt)
             ops += evt.count
             busy_us += us
+            sort_us += us if "RadixSort" in evt.key else 0.0
             per_op.append((us, evt.key))
         elif evt.key == "cudaLaunchKernel":
             launches += evt.count
@@ -108,6 +113,7 @@ def profile_model(name: str, engine: str, batch_size: int) -> dict:
             "device_busy_ms_per_step": busy_ms,
             "device_idle_share": 1.0 - busy_ms / step_ms,
             "launch_calls_per_step": launches / PROFILED_STEPS,
+            "radix_sort_ms_per_step": sort_us / 1e3 / PROFILED_STEPS,
             "top": [[key[:80], us / 1e3 / PROFILED_STEPS]
                     for us, key in per_op[:5]],
             "device": torch.cuda.get_device_name(0)}

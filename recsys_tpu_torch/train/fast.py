@@ -60,16 +60,21 @@ def make_scanned_train_step(model: Model, tx):
 
 def make_scanned_train_step_devgen(model: Model, tx, n_rows: int,
                                    batch_size: int):
-    """``steps(ts, data, k) -> (ts, mean_loss)``: K optimizer steps with
-    batch indices drawn on the device, with replacement, from the train
-    state's generator — no host-to-device traffic and no host read inside
-    the call; the mean loss comes back as a device scalar."""
+    """``steps(ts, data, k, first_step) -> (ts, mean_loss)``: K optimizer
+    steps with batch indices drawn on the device, with replacement, from the
+    train state's generator — no host-to-device traffic and no host read
+    inside the call; the mean loss comes back as a device scalar.
+    ``first_step`` is the host's count of the steps ``ts`` has taken: step
+    ``first_step + i`` reseeds the generator from (``ts.seed``, that step)
+    before it draws its indices and dropout masks (`TS.reseed`), as the
+    reference folds the step into its key."""
     step = TS.make_train_step(model, tx)
 
-    def steps(ts, data, k: int):
+    def steps(ts, data, k: int, first_step: int):
         device = next(iter(data.values())).device
         total = torch.zeros((), dtype=torch.float32, device=device)
-        for _ in range(k):
+        for i in range(k):
+            TS.reseed(ts, first_step + i)
             idx = torch.randint(0, n_rows, (batch_size,), generator=ts.rng,
                                 device=device)
             ts, loss = step(ts, _take(data, idx))
@@ -106,11 +111,12 @@ def train_on_device(model: Model, tx, ts, data: dict[str, np.ndarray], *,
     staged = stage_dataset(data, ts.step.device)
     n = len(next(iter(data.values())))
     step_fn = make_scanned_train_step_devgen(model, tx, n, batch_size)
+    first = int(ts.step)
     done, calls, loss = 0, 0, float("nan")
     t0 = time.perf_counter()
     while done < num_steps:
         k = min(steps_per_call, num_steps - done)
-        ts, mean_loss = step_fn(ts, staged, k)
+        ts, mean_loss = step_fn(ts, staged, k, first + done)
         done += k
         calls += 1
         loss = float(mean_loss)   # the one host read of the call

@@ -9,7 +9,9 @@
   call, eval and a checkpoint every ``eval_every_steps``.
 
 Both resume from the latest checkpoint of ``(params, model_state,
-opt_state)``. Checkpoints are written in the JAX package's layout
+opt_state)``. Every step draws its randomness from (``cfg.seed``, step)
+(`train_state.reseed`), so a resumed run continues the run it resumes.
+Checkpoints are written in the JAX package's layout
 (`convert.export_params` turns the big table back into ``big_wm``), so
 either package can resume from the other's. The JSONL/TensorBoard
 summaries and best-metric retention are not ported yet.
@@ -94,6 +96,7 @@ def train_and_evaluate(model: Model, train_iter: Iterator[dict],
     metrics: dict[str, float] = {}
     for step_idx in range(start_step, num_steps):
         batch = next(train_iter)
+        TS.reseed(ts, step_idx)
         ts, loss = step_fn(ts, fast.stage_dataset(batch, device))
         if (step_idx + 1) % cfg.log_every_steps == 0:
             losses.append(float(loss))        # the one host read per window
@@ -166,7 +169,7 @@ def train_and_evaluate_fast(model: Model, train_data: dict[str, np.ndarray],
     next_eval = (done // cfg.eval_every_steps + 1) * cfg.eval_every_steps
     while done < num_steps:
         k = min(steps_per_call, num_steps - done, max(1, next_eval - done))
-        ts, loss = step_fn(ts, staged_train, k)
+        ts, loss = step_fn(ts, staged_train, k, done)
         done += k
         if done >= next_eval or done >= num_steps:
             loss_v = float(loss)

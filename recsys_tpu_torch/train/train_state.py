@@ -28,6 +28,7 @@ class TrainState(NamedTuple):
     opt_state: Any
     step: torch.Tensor        # int32 scalar on the training device
     rng: torch.Generator      # dropout and batch-index draws, on that device
+    seed: int = 0             # the run's root seed (see `reseed`)
 
 
 def make_generator(seed: int, device) -> torch.Generator:
@@ -36,6 +37,28 @@ def make_generator(seed: int, device) -> torch.Generator:
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     return gen
+
+
+_MASK64 = (1 << 64) - 1
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The seed of step ``step``'s draws in a run seeded with ``seed``: a
+    splitmix64 mix of the pair, the counterpart of the reference's
+    ``fold_in(root_key, step)`` (``recsys_tpu/core/prng.py``)."""
+    z = (seed * 0x9E3779B97F4A7C15 + step) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (z ^ (z >> 31)) >> 1
+
+
+def reseed(ts: "TrainState", step: int) -> None:
+    """Seed ``ts.rng`` for step ``step`` (the host's count of steps taken),
+    so that the step's batch indices and dropout masks depend on (seed,
+    step) only and a resumed run draws what the uninterrupted run drew.
+    ``manual_seed`` sets the generator's state on the host and launches
+    nothing."""
+    ts.rng.manual_seed(step_seed(ts.seed, step))
 
 
 def sigmoid_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -49,7 +72,8 @@ def create_train_state(model: Model, seed: int, learning_rate: float,
                        opt: optim.Optimizer | None = None):
     """(TrainState, optimizer): parameters drawn from a CPU generator seeded
     with ``seed`` (the same values on any device), then moved to
-    ``device``; the state's generator lives on ``device``. The device is
+    ``device``; the state's generator lives on ``device`` and the training
+    loops reseed it from (``seed``, step) before every step. The device is
     the card unless the caller asks for the CPU: ``cuda`` without a card
     raises, it never falls back. The optimizer is ``opt``, or the one the
     model declares (`optim.for_model`)."""
@@ -63,7 +87,7 @@ def create_train_state(model: Model, seed: int, learning_rate: float,
                                                      learning_rate)
     return TrainState(params, model_state, tx.init(params),
                       torch.zeros((), dtype=torch.int32, device=device),
-                      make_generator(seed + 1, device)), tx
+                      make_generator(seed + 1, device), seed), tx
 
 
 def loss_and_grads(model: Model, params, model_state, batch,

@@ -249,6 +249,44 @@ def test_din_loss_and_gradients_match_jax():
         assert not rows[~touched].any(), name
 
 
+def test_item_bias_is_read_through_the_table_gather(monkeypatch):
+    """A DIN train step reads all five tables through `table_gather`'s
+    autograd function: the item bias as its ``[V, 1]`` view, so that on the
+    card its forward is the row gather and its backward the segment sum (a
+    plain ``index_select`` had an atomic ``index_add_`` backward). Its
+    gradient still matches the JAX model's (`jnp.take`)."""
+    from recsys_tpu_torch.embeddings import table
+
+    jm, tm = _models()
+    jparams, jstate = _jax_tree()
+    d = _batch(n=64, seed=6)
+    shapes = []
+    apply = table._TableGather.apply
+
+    def counted(t, flat_ids):
+        shapes.append(tuple(t.shape))
+        return apply(t, flat_ids)
+
+    monkeypatch.setattr(table._TableGather, "apply", counted)
+    _, _, grads = TS.loss_and_grads(tm, convert.convert_params(jparams),
+                                    convert.convert_params(jstate),
+                                    fast.stage_dataset(d, "cpu"))
+    assert sorted(shapes) == sorted([(ITEMS, 8)] * 2 + [(CATES, 8)] * 2
+                                    + [(ITEMS, 1)])
+
+    def jloss(p):
+        logits, _ = jm.apply(p, jstate, d, train=True, rng=jax.random.key(1))
+        return JTS.sigmoid_ce(logits, d["label"])
+
+    jgrads = jax.jit(jax.grad(jloss))(jparams)
+    np.testing.assert_allclose(grads["item_bias"].numpy(),
+                               np.asarray(jgrads["item_bias"]), **GRAD_TOL)
+    touched = np.zeros(ITEMS, bool)
+    touched[d["i_id"]] = True
+    assert (grads["item_bias"].numpy()[touched] != 0).all()
+    assert not grads["item_bias"].numpy()[~touched].any()
+
+
 def test_three_adam_steps_match_jax():
     jm, tm = _models()
     jts, jtx = JTS.create_train_state(jm, seed=3, learning_rate=1e-3)

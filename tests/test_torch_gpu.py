@@ -169,13 +169,120 @@ def test_segment_sum_kernel_edge_cases(cuda_device):
     torch.testing.assert_close(got, ss.segment_sum_reference(one, g, 10),
                                rtol=1e-5, atol=1e-3)
     assert not got[torch.arange(10, device=cuda_device) != 7].any()
+    before = ss.LAUNCHES
     empty = ss.segment_sum(one[:0], g[:0], 10)
     assert empty.shape == (10, 17) and not empty.any()
+    assert ss.LAUNCHES == before          # N = 0 launches no kernel
     wide = torch.randn(300, 70, device=cuda_device)     # W > 32
     ids = torch.randint(0, 40, (300,), device=cuda_device)
     torch.testing.assert_close(ss.segment_sum(ids, wide, 40),
                                ss.segment_sum_reference(ids, wide, 40),
                                rtol=1e-5, atol=1e-4)
+
+
+def _zipf_ids(n, v, gen):
+    """Zipf-like ids in [0, v) with v - 1 among them: hot rows whose
+    segments cross many chunks of 128, as the Criteo fields give."""
+    ids = (v * torch.rand(n, generator=gen) ** 2.2).long().clamp_(max=v - 1)
+    ids[: min(n, 3)] = v - 1
+    return ids
+
+
+@pytest.mark.parametrize("w", [1, 2, 3, 5, 8, 16, 17, 32, 33, 70])
+@pytest.mark.parametrize("n", [1, 127, 5000, 70_001])
+def test_segment_sum_kernel_at_every_width(cuda_device, w, n):
+    """Every warp layout (32, 16, 8, 4 or 2 entries a step below W = 17,
+    one entry and column tiles of 32 from it), N not a multiple of the
+    chunk, into a power-of-two table whose last row is hit: within the
+    plain version's tolerance (sums in another order) and bitwise equal
+    from call to call."""
+    gen = torch.Generator().manual_seed(w * 1000 + n)
+    v = 4096
+    ids = _zipf_ids(n, v, gen).to(cuda_device)
+    g = torch.randn(n, w, generator=gen).to(cuda_device)
+    got = ss.segment_sum(ids, g, v)
+    torch.testing.assert_close(got, ss.segment_sum_reference(ids, g, v),
+                               rtol=1e-5, atol=1e-4)
+    assert got[v - 1].abs().sum() > 0
+    assert torch.equal(got, ss.segment_sum(ids, g, v))   # bitwise
+
+
+@pytest.mark.parametrize("w", [1, 17])
+def test_segment_sum_kernel_drops_ids_out_of_range(cuda_device, w):
+    """Negative ids and ids at or past ``num_rows`` add nothing; every
+    other id sums as it would without them. All-equal ids make one
+    segment across every chunk."""
+    gen = torch.Generator().manual_seed(w)
+    n, v = 20_000, 1000
+    ids = torch.randint(-50, v + 50, (n,), generator=gen)
+    ids[::7] = 2 ** 40
+    ids[::11] = -(2 ** 40)
+    g = torch.randn(n, w, generator=gen)
+    keep = (ids >= 0) & (ids < v)
+    got = ss.segment_sum(ids.to(cuda_device), g.to(cuda_device), v)
+    ref = ss.segment_sum_reference(ids[keep], g[keep], v)
+    torch.testing.assert_close(got.cpu(), ref, rtol=1e-5, atol=1e-4)
+    same = torch.full((n,), v - 1, dtype=torch.int64, device=cuda_device)
+    gd = g.to(cuda_device)
+    got = ss.segment_sum(same, gd, v)
+    torch.testing.assert_close(got, ss.segment_sum_reference(same, gd, v),
+                               rtol=1e-5, atol=1e-3)
+    assert torch.equal(got, ss.segment_sum(same, gd, v))
+
+
+def test_segment_sum_kernel_replays_in_a_cuda_graph(cuda_device):
+    """The whole call (its two allocations, the memset, the sort and the
+    two kernels) is captured in a CUDA graph; replays on new gradients give
+    what eager calls give, bitwise."""
+    gen = torch.Generator().manual_seed(3)
+    ids = _zipf_ids(40_000, 30_000, gen).to(cuda_device)
+    g = torch.randn(40_000, 17, generator=gen).to(cuda_device)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ss.segment_sum(ids, g, 30_000)        # warm-up: build, workspace size
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ss.segment_sum(ids, g, 30_000)
+    for seed in (4, 5):
+        g.copy_(torch.randn(40_000, 17,
+                            generator=torch.Generator().manual_seed(seed)))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, ss.segment_sum(ids, g, 30_000))
+
+
+def test_segment_sum_wrapper_makes_one_call(cuda_device, monkeypatch):
+    """On the card the wrapper's only torch ops are the output's and the
+    workspace's ``empty``, and it calls the C side once (its workspace size
+    is cached per shape)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.seen.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    ids = torch.randint(0, 500, (3000,), device=cuda_device)
+    g = torch.randn(3000, 8, device=cuda_device)
+    ss.segment_sum(ids, g, 500)                # caches the workspace size
+    lib, calls = ss._lib(), []
+
+    class Counted:
+        def __getattr__(self, name):
+            calls.append(name)
+            return getattr(lib, name)
+
+    monkeypatch.setattr(ss, "_lib", lambda: Counted())
+    with Ops() as ops:
+        ss.segment_sum(ids, g, 500)
+    assert calls == ["segment_sum"]
+    assert ops.seen == ["aten.empty.memory_format"] * 2
 
 
 @pytest.mark.parametrize("name", ["deepfm", "xdeepfm"])
@@ -245,6 +352,8 @@ def test_row_gather_kernel_out_of_range_ids_and_alignment(cuda_device):
 
 
 def test_din_servable_on_the_card_matches_the_cpu(cuda_device, tmp_path):
+    """Five row gathers a request: the item and category tables for the
+    target and the history, and the item bias."""
     mcfg = ModelConfig(name="din", embedding_dim=32, use_bn=False)
     params, state = make_model("din", 5000, 100, mcfg).init(
         torch.Generator().manual_seed(0), "cpu")
@@ -254,7 +363,7 @@ def test_din_servable_on_the_card_matches_the_cpu(cuda_device, tmp_path):
     feats = sv._sample_features(300)
     before = (rg.LAUNCHES, ss.LAUNCHES)
     got = sv.predict(feats)
-    assert (rg.LAUNCHES - before[0], ss.LAUNCHES - before[1]) == (4, 0)
+    assert (rg.LAUNCHES - before[0], ss.LAUNCHES - before[1]) == (5, 0)
     ref = Servable(str(tmp_path), device="cpu").predict(feats)
     np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
 
@@ -277,8 +386,8 @@ def test_three_din_steps_on_the_card_match_the_cpu(cuda_device):
         for b in batches:
             ts, loss = step(ts, fast.stage_dataset(b, dev))
         out[str(dev)] = (float(loss), ts.params)
-    assert ss.LAUNCHES - counts[1] == 12          # 4 table reads per step
-    assert rg.LAUNCHES - counts[0] == 12
+    assert ss.LAUNCHES - counts[1] == 15          # 5 table reads per step
+    assert rg.LAUNCHES - counts[0] == 15
     (l_cpu, p_cpu), (l_gpu, p_gpu) = out["cpu"], out["cuda"]
     assert abs(l_cpu - l_gpu) <= 1e-5 * abs(l_cpu)
     for a, b in zip(tree_util.leaves(p_cpu), tree_util.leaves(p_gpu)):

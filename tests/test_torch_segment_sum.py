@@ -76,7 +76,7 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
 
 
 @pytest.mark.parametrize("bad", ["ids_dtype", "grads_dtype", "shape",
-                                 "contiguous", "rows"])
+                                 "contiguous", "rows", "ids_contiguous"])
 def test_segment_sum_rejects_what_the_kernel_does_not_take(bad):
     ids, g, rows = torch.tensor([0, 1, 1]), torch.ones(3, 4), 2
     if bad == "ids_dtype":
@@ -87,7 +87,37 @@ def test_segment_sum_rejects_what_the_kernel_does_not_take(bad):
         g = torch.ones(4, 4)
     elif bad == "contiguous":
         g = torch.ones(4, 3).t()
+    elif bad == "ids_contiguous":
+        ids = torch.tensor([0, 9, 1, 9, 1, 9])[::2]
     else:
         rows = 0
     with pytest.raises((TypeError, ValueError)):
+        ss.segment_sum(ids, g, rows)
+
+
+@pytest.mark.parametrize("num_rows,bits", [
+    (1, 1), (2, 2),
+    (4096, 13),           # a power of two: the sentinel 4096 needs bit 12
+    (4097, 13),
+    (840_704, 20),        # the Criteo tables at full width
+    (2 ** 31 - 2, 31),    # the most rows the kernel takes
+])
+def test_sort_keys_cover_every_row_and_the_sentinel(num_rows, bits):
+    """The sort runs over ``key_bits(num_rows)`` bits: enough for every key
+    in ``0..num_rows`` (``num_rows`` is the sentinel of out-of-range ids)
+    and no more."""
+    assert ss.key_bits(num_rows) == bits
+    assert num_rows < 2 ** bits and (num_rows - 1) < 2 ** bits
+    assert num_rows >= 2 ** (bits - 1)
+
+
+@pytest.mark.parametrize("n,rows", [(2 ** 31, 10), (10, 2 ** 31 - 1),
+                                    (10, 2 ** 40)])
+def test_segment_sum_rejects_what_32_bit_keys_cannot_hold(n, rows):
+    """More than 2^31 - 1 ids, or a table whose sentinel row id would not
+    fit a 31-bit key, is refused before any launch; the shapes are checked
+    on ``meta`` tensors, which allocate nothing."""
+    ids = torch.empty(n, dtype=torch.int64, device="meta")
+    g = torch.empty(n, 1, dtype=torch.float32, device="meta")
+    with pytest.raises(ValueError, match="32-bit keys"):
         ss.segment_sum(ids, g, rows)

@@ -136,6 +136,63 @@ def test_rest_server_status_errors_and_concurrency(rest):
         np.testing.assert_allclose(o, sv.predict(f), atol=1e-6, rtol=0)
 
 
+def test_a_bad_request_fails_alone_in_a_coalesced_group(jax_export):
+    """Behind a busy worker, a valid request and one with an id out of
+    range are queued together: the bad one gets its 400 at once, on its own
+    thread, and the valid one is answered with its probabilities."""
+    sv = export.Servable(jax_export, device="cpu")
+    plain_predict = sv.predict
+    entered, release = threading.Event(), threading.Event()
+
+    def busy_predict(features):          # the worker's first call waits
+        entered.set()
+        release.wait(30)
+        return plain_predict(features)
+
+    sv.predict = busy_predict
+    srv, batcher = server.make_rest_server(sv, 0)
+    port = srv.server_address[1]
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    good = _features(4, start_row=11)
+    bad = _features(3, start_row=22)
+    bad["ids"][1, 30] = 3000             # field 30's vocab is 3000
+    out: dict = {}
+
+    def call(name, feats):
+        try:
+            out[name] = client.rest_send(port, client.prepare_body(feats,
+                                                                   "raw"))
+        except urllib.error.HTTPError as e:
+            out[name] = e.code
+
+    batcher._inline.acquire()            # every request takes the queue
+    try:
+        threads = [threading.Thread(target=call, args=("first", good))]
+        threads[0].start()
+        assert entered.wait(30)          # the worker is busy with it
+        for name, feats in (("good", good), ("bad", bad)):
+            threads.append(threading.Thread(target=call, args=(name, feats)))
+            threads[-1].start()
+        for _ in range(300):             # both queued, or the bad one done
+            if batcher.q.qsize() + ("bad" in out) >= 2:
+                break
+            threading.Event().wait(0.1)
+        release.set()
+        for t in threads:
+            t.join(30)
+    finally:
+        release.set()
+        batcher._inline.release()
+        srv.shutdown()
+        srv.server_close()
+        batcher.stop()
+    assert out["bad"] == 400
+    np.testing.assert_allclose(out["good"], plain_predict(good), atol=1e-6,
+                               rtol=0)
+    np.testing.assert_allclose(out["first"], plain_predict(good), atol=1e-6,
+                               rtol=0)
+
+
 def test_checkpoint_paths_follow_jax():
     tree = ({"tables": {"small": np.ones((2, 3), np.float32),
                         "big_wm": np.zeros((3, 4), np.float32),

@@ -36,7 +36,7 @@ from recsys_tpu.train import train_state as JTS
 from recsys_tpu_torch import convert
 from recsys_tpu_torch.core import checkpoint
 from recsys_tpu_torch.core import tree as tree_util
-from recsys_tpu_torch.core.config import CriteoConfig, ModelConfig
+from recsys_tpu_torch.core.config import CriteoConfig, ModelConfig, TrainConfig
 from recsys_tpu_torch.models.api import make_model
 from recsys_tpu_torch.tools import train_ctr
 from recsys_tpu_torch.train import fast, loop, metrics, optim
@@ -151,6 +151,53 @@ def test_train_on_device_drives_the_devgen_path():
     assert int(ts.step) == 60 and np.isfinite(loss)
     assert [a[0] for a in logged] == [20, 40, 60]
     assert logged[-1][1] == loss < logged[0][1]
+
+
+@pytest.mark.parametrize("k", [2, 3])
+def test_a_resumed_run_continues_the_run_it_resumes(tmp_path, k):
+    """12 steps of DeepFM at dropout 0.5 in one run, and 6 steps, a resume
+    from their checkpoint and 6 more, give bitwise the same parameters and
+    optimizer state: each step draws its batch indices and dropout masks
+    from (seed, step), as the reference folds the step into its key."""
+    _, tm = _models("deepfm", dropout=0.5)
+    data, _ = _batch(1024)
+    evald, _ = _batch(256, start_row=10 ** 6)
+
+    def run(model_dir, num_steps):
+        cfg = TrainConfig(batch_size=64, learning_rate=1e-2,
+                          eval_every_steps=6, eval_steps=2, seed=5,
+                          model_dir=str(model_dir))
+        loop.train_and_evaluate_fast(tm, data, evald, cfg,
+                                     num_steps=num_steps, device="cpu",
+                                     steps_per_call=k)
+        # the checkpoint's leaves (params, BN state, Adam state) by name
+        with np.load(model_dir / f"step_{num_steps}" / "arrays.npz") as z:
+            return {name: z[name] for name in z.files}
+
+    whole = run(tmp_path / "whole", 12)
+    first = run(tmp_path / "split", 6)
+    split = run(tmp_path / "split", 12)
+    assert whole.keys() == split.keys() == first.keys()
+    for name in whole:
+        np.testing.assert_array_equal(split[name], whole[name], err_msg=name)
+    assert any(not np.array_equal(split[n], first[n]) for n in first)
+
+
+def test_step_draws_depend_on_seed_and_step_only():
+    _, tm = _models("deepfm")
+    ts, _ = TS.create_train_state(tm, seed=9, learning_rate=1e-3,
+                                  device="cpu")
+
+    def draw(step):
+        TS.reseed(ts, step)
+        return torch.randint(0, 1 << 30, (8,), generator=ts.rng)
+
+    a = draw(4)
+    draw(5)
+    assert torch.equal(draw(4), a)
+    assert not torch.equal(draw(5), a)
+    assert TS.step_seed(9, 4) != TS.step_seed(10, 4)
+    assert 0 <= TS.step_seed(2 ** 63 - 1, 2 ** 40) < 2 ** 63
 
 
 def test_adam_update_matches_jax():
