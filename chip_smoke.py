@@ -24,7 +24,10 @@ without the package beside it. On a card it
      tolerance 1e-4 absolute and relative: 1521-term float32 sums in
      another order than cuBLAS; backward the same for dx0/dxk, and for
      dW/db, sums over all N rows, 1e-4 relative plus 1e-4·N/1024
-     absolute), timed at B = 4096;
+     absolute), the backward bitwise equal across two calls and after a
+     CUDA-graph replay at every shape; timed at B = 4096 back to back and
+     as device time in a CUDA graph, with the backward's device time split
+     by device operation (``torch.profiler``) at each layer;
    - segment sum: the big (837,632 rows) and small (4,096 rows) tables of
      DeepFM at batch 16384 with the engine's own ids, the fused engine's
      one table (638,976 ids into 840,704 × 17) and the wide model's
@@ -179,6 +182,22 @@ def _graph_ms(fn, iters: int = 100) -> float:
     return start.elapsed_time(end) / (5 * iters)
 
 
+def _replays_bitwise(fn) -> bool:
+    """One call of ``fn`` (→ tuple of tensors) captured in a CUDA graph and
+    replayed gives bitwise what an eager call gives."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                   # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for a, b in zip(out, fn()))
+
+
 def _read(counters: dict) -> dict:
     """{name: launches} of ``counters`` ({name: wrapper module})."""
     return {k: m.LAUNCHES for k, m in counters.items()}
@@ -231,8 +250,9 @@ def cin_forward_phase(cin_kernel, layers, dev) -> dict:
     """CIN forward kernel vs plain version: errors at every shape, times at
     B = 4096."""
     gen = torch.Generator().manual_seed(1234)
-    max_abs, ms, plain_ms, bound_ms = 0.0, 0.0, 0.0, 0.0
+    max_abs, ms, plain_ms, bound_ms, graph_ms = 0.0, 0.0, 0.0, 0.0, 0.0
     biggest = (0.0, "operations")
+    per_layer = []
     for n in [16 * b for b in BATCHES] + [RAGGED_N]:
         for f0, fk, h in layers:
             x0v, xkv, w, b = _cin_inputs(gen, n, f0, fk, h, dev)
@@ -254,29 +274,35 @@ def cin_forward_phase(cin_kernel, layers, dev) -> dict:
                     lambda: cin_kernel.cin_layer_fwd(x0v, xkv, w, b),
                     lambda: cin_kernel.cin_layer_reference(x0v, xkv, w, b),
                     50)
+                g_ms = _graph_ms(
+                    lambda: cin_kernel.cin_layer_fwd(x0v, xkv, w, b))
                 b_ms, b_by = _bound(*_cin_fwd_work(n, f0, fk, h))
                 if b_ms > biggest[0]:
                     biggest = (b_ms, b_by)
                 ms += k_ms
                 plain_ms += p_ms
                 bound_ms += b_ms
-                line += (f" kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-                         f"bound_ms={b_ms:.4f}")
+                graph_ms += g_ms
+                per_layer.append({"fk": fk, "h": h, "graph_ms": g_ms,
+                                  "ms": k_ms, "bound_ms": b_ms})
+                line += (f" kernel_ms={k_ms:.4f} graph_ms={g_ms:.4f} "
+                         f"plain_ms={p_ms:.4f} bound_ms={b_ms:.4f}")
             print(line, flush=True)
             _check(ok, f"CIN forward kernel disagrees with its plain version "
                        f"at N={n} Fk={fk} H={h}")
     # the bound is the sum of the layers' bounds; what bounds the largest
     return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": biggest[1],
-            "library_ms": None}
+            "library_ms": None, "graph_ms": graph_ms, "layers": per_layer}
 
 
 def cin_backward_phase(cin_kernel, layers, dev) -> dict:
     """CIN backward kernel vs plain version: errors at every shape, times
     at B = 4096."""
     gen = torch.Generator().manual_seed(4321)
-    max_abs, ms, plain_ms, bound_ms = 0.0, 0.0, 0.0, 0.0
+    max_abs, ms, plain_ms, bound_ms, graph_ms = 0.0, 0.0, 0.0, 0.0, 0.0
     biggest = (0.0, "operations")
+    per_layer = []
     for n in [16 * b for b in BATCHES] + [RAGGED_N]:
         for f0, fk, h in layers:
             x0v, xkv, w, b = _cin_inputs(gen, n, f0, fk, h, dev)
@@ -305,24 +331,40 @@ def cin_backward_phase(cin_kernel, layers, dev) -> dict:
             again = cin_kernel.cin_layer_bwd(x0v, xkv, w, y, dy)
             _check(all(torch.equal(a, g) for a, g in zip(again, got)),
                    f"CIN backward kernel not deterministic at N={n} Fk={fk}")
+
+            def kern():
+                return cin_kernel.cin_layer_bwd(x0v, xkv, w, y, dy)
+
+            _check(_replays_bitwise(kern),
+                   f"CIN backward replayed in a CUDA graph differs from an "
+                   f"eager call at N={n} Fk={fk}")
+            line += " bitwise_repeat=True graph_replay_bitwise=True"
             if n == 16 * BATCHES[-1]:
                 k_ms, p_ms = _timed_pair(
-                    lambda: cin_kernel.cin_layer_bwd(x0v, xkv, w, y, dy),
-                    lambda: cin_kernel.cin_layer_backward_reference(
+                    kern, lambda: cin_kernel.cin_layer_backward_reference(
                         x0v, xkv, w, y, dy), 20)
+                g_ms = _graph_ms(kern)
+                parts = _device_breakdown(kern)
                 b_ms, b_by = _bound(*_cin_bwd_work(n, f0, fk, h))
                 if b_ms > biggest[0]:
                     biggest = (b_ms, b_by)
                 ms += k_ms
                 plain_ms += p_ms
                 bound_ms += b_ms
-                line += (f" kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-                         f"bound_ms={b_ms:.4f}")
+                graph_ms += g_ms
+                per_layer.append({
+                    "fk": fk, "h": h, "graph_ms": g_ms, "ms": k_ms,
+                    "bound_ms": b_ms,
+                    "breakdown": [[k, round(t, 5), c] for k, t, c in parts]})
+                line += (f" kernel_ms={k_ms:.4f} graph_ms={g_ms:.4f} "
+                         f"plain_ms={p_ms:.4f} bound_ms={b_ms:.4f}\n  per "
+                         "call on the device: " + "; ".join(
+                             f"{k} {t:.4f} ms x{c:g}" for k, t, c in parts))
             print(line, flush=True)
     # the bound is the sum of the layers' bounds; what bounds the largest
     return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": biggest[1],
-            "library_ms": None}
+            "library_ms": None, "graph_ms": graph_ms, "layers": per_layer}
 
 
 def _segment_sum_bytes(n: int, w: int, rows: int) -> int:
@@ -1246,8 +1288,10 @@ def main() -> None:
     gat = row_gather_phase(rg, ccfg, dev)
     probe = reshape_probe_phase(rp, dev)
     print(f"kernel phases ok [{card}]: CIN fwd {fwd['ms']:.4f} ms vs plain "
-          f"{fwd['plain_ms']:.4f} ms, CIN bwd {bwd['ms']:.4f} ms vs plain "
-          f"{bwd['plain_ms']:.4f} ms (three layers at B=4096); segment sum "
+          f"{fwd['plain_ms']:.4f} ms ({fwd['graph_ms']:.4f} ms of device "
+          f"time), CIN bwd {bwd['ms']:.4f} ms vs plain "
+          f"{bwd['plain_ms']:.4f} ms ({bwd['graph_ms']:.4f} ms of device "
+          "time) (three layers at B=4096); segment sum "
           f"{seg['ms']:.4f} ms vs plain {seg['plain_ms']:.4f} ms, index_add_ "
           f"{seg['library_ms']:.4f} ms (fused table at B=16384); row gather "
           f"{gat['ms']:.4f} ms vs index_select {gat['plain_ms']:.4f} ms of "
@@ -1341,17 +1385,24 @@ def main() -> None:
         {"name": "cin_layer_fwd", "route": "cuda",
          "source": "recsys_tpu_torch/csrc/cin_layer.cu",
          "replaces": "recsys_tpu/ops/pallas_cin.py:149",
-         "note": "launches: xDeepFM serving; ms: three layers at B=4096",
+         "note": "launches: xDeepFM serving; ms: three layers at B=4096 "
+                 "back to back; graph_ms: their device time in a CUDA graph",
          "launches": served["xdeepfm"]["launches"]["cin_fwd"],
          **{k: fwd[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                "bound_by", "library_ms")}},
+                                "bound_by", "library_ms", "graph_ms",
+                                "layers")}},
         {"name": "cin_layer_bwd", "route": "cuda",
          "source": "recsys_tpu_torch/csrc/cin_backward.cu",
          "replaces": "recsys_tpu/ops/pallas_cin.py:180",
-         "note": "launches: xDeepFM training; ms: three layers at B=4096",
+         "note": "launches: xDeepFM training; ms: three layers at B=4096 "
+                 "back to back; graph_ms: their device time in a CUDA graph; "
+                 "breakdown: per layer, each device operation's ms per call",
          "launches": trained["xDeepFM B=4096"]["counts"]["cin_bwd"],
+         "breakdown": [{k: l[k] for k in ("fk", "h", "graph_ms",
+                                          "breakdown")}
+                       for l in bwd["layers"]],
          **{k: bwd[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                "bound_by", "library_ms")}},
+                                "bound_by", "library_ms", "graph_ms")}},
         {"name": "segment_sum", "route": "cuda",
          "source": "recsys_tpu_torch/csrc/segment_sum.cu",
          "replaces": "recsys_tpu/ops/pallas_kernels.py:334",

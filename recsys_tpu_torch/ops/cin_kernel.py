@@ -32,9 +32,8 @@ from recsys_tpu_torch.ops import cuda_build
 SOURCE = cuda_build.source("cin_layer.cu")
 BWD_SOURCE = cuda_build.source("cin_backward.cu")
 MAX_H = 32   # accumulators per thread (both sources instantiate H = 1..32)
-_DW_TILE = 32          # rows per shared tile of the dW pass (cin_backward.cu)
-_DW_GROUP_ROWS = 512   # rows per dW partial sum, up to _DW_MAX_GROUPS groups
-_DW_MAX_GROUPS = 256
+_SMS = 132             # the H100 SXM's SMs: the dW pass's groups fill them
+_DW_MIN_ROWS = 64      # rows per dW partial sum, at least
 
 #: Forward kernel launches made by `cin_layer_fwd`, and backward kernel
 #: launches made by `cin_layer_bwd` (plain counts; read them to show that a
@@ -57,7 +56,7 @@ def _bwd_lib() -> ctypes.CDLL:
     lib = cuda_build.load(BWD_SOURCE)
     if lib.cin_layer_bwd.argtypes is None:
         lib.cin_layer_bwd.argtypes = (
-            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         lib.cin_layer_bwd.restype = ctypes.c_int
     return lib
 
@@ -146,12 +145,31 @@ def cin_layer_fwd(x0v: torch.Tensor, xkv: torch.Tensor, w: torch.Tensor,
     return y
 
 
-def _dw_groups(n: int) -> tuple[int, int]:
+def _dw_groups(n: int, f0: int, fk: int) -> tuple[int, int]:
     """(groups, rows per group) of the dW pass's partial sums: a function of
-    N alone, so the summation order and the result are fixed for a shape."""
-    target = min(_DW_MAX_GROUPS, -(-n // _DW_GROUP_ROWS))
-    rows = -(-(-(-n // target)) // _DW_TILE) * _DW_TILE
+    the shape alone, so the summation order and the result are fixed for a
+    shape. A block of the pass has one thread per 4 z columns (plus the
+    bias column); at large N the groups are 132 (one block per SM) times
+    the blocks of that size that make about 16 warps an SM, at most 4."""
+    warps = -(-(f0 * -(-fk // 4) + 1) // 32)
+    per_sm = max(1, min(4, 16 // warps))
+    target = max(1, min(_SMS * per_sm, -(-n // _DW_MIN_ROWS)))
+    rows = -(-n // target)
     return -(-n // rows), rows
+
+
+def _dw_part_floats(f0: int, fk: int, h: int) -> int:
+    """Floats of one row group's dW partial sums, laid out as the kernel
+    writes them: [H][tile][4], a tile being 4 columns of z (one p, 4
+    consecutive q, the last tile of a p padded) and one more tile for the
+    bias, so that each store of a warp is contiguous."""
+    return h * (f0 * -(-fk // 4) + 1) * 4
+
+
+def _wt_floats(f0: int, fk: int, h: int) -> int:
+    """Floats of W as the rows pass stages it: [pass][F0][H][8], a pass
+    being the 8 q values of a lane pair's two 4-q tiles (zero beyond Fk)."""
+    return -(-fk // 8) * f0 * h * 8
 
 
 def cin_layer_bwd(x0v: torch.Tensor, xkv: torch.Tensor, w: torch.Tensor,
@@ -175,15 +193,17 @@ def cin_layer_bwd(x0v: torch.Tensor, xkv: torch.Tensor, w: torch.Tensor,
         return dx0, dxk, torch.zeros_like(w), torch.zeros(h, device=dev)
     dw = torch.empty_like(w)
     db = torch.empty((h,), dtype=torch.float32, device=dev)
-    groups, rows = _dw_groups(n)
-    part = torch.empty((groups, f0 * fk + 1, h), dtype=torch.float32,
-                       device=dev)
+    groups, rows = _dw_groups(n, f0, fk)
+    part_floats = groups * _dw_part_floats(f0, fk, h)   # a multiple of 4
+    work = torch.empty(part_floats + _wt_floats(f0, fk, h),
+                       dtype=torch.float32, device=dev)
     lib = _bwd_lib()
     with torch.cuda.device(dev):
         err = lib.cin_layer_bwd(
             x0v.data_ptr(), xkv.data_ptr(), w.data_ptr(), y.data_ptr(),
-            dy.data_ptr(), dx0.data_ptr(), dxk.data_ptr(), part.data_ptr(),
-            dw.data_ptr(), db.data_ptr(), n, f0, fk, h, groups, rows,
+            dy.data_ptr(), dx0.data_ptr(), dxk.data_ptr(), work.data_ptr(),
+            work[part_floats:].data_ptr(), dw.data_ptr(), db.data_ptr(), n,
+            f0, fk, h, groups, rows,
             _stream(dev))
     cuda_build.check(lib, err, "cin_layer_bwd")
     with _count_lock:

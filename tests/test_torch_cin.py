@@ -145,6 +145,42 @@ def test_cin_backward_matches_pallas_backward(n, fk, h):
                                    rtol=1e-5, atol=5e-5)
 
 
+@pytest.mark.parametrize("n,f0,fk", [
+    (1, 39, 39), (63, 39, 20), (64, 39, 10), (3333, 39, 39),
+    (16 * 4096, 39, 39), (16 * 4096, 39, 20), (16 * 4096, 39, 10),
+    (10 ** 6, 5, 1), (2 ** 31 // 39, 39, 39)])
+def test_dw_groups_cover_n_and_depend_on_the_shape_alone(n, f0, fk):
+    """The dW pass's row groups cover every row once, none is empty, the
+    group count fits a CUDA grid, and the split is a function of the shape
+    alone (the partial sums' order, hence the result, is fixed for a
+    shape). At the main path's N every one of the H100's 132 SMs gets at
+    least one group."""
+    groups, rows = cin_kernel._dw_groups(n, f0, fk)
+    assert 1 <= groups <= 65535 and rows >= 1
+    assert (groups - 1) * rows < n <= groups * rows
+    assert cin_kernel._dw_groups(n, f0, fk) == (groups, rows)
+    if n == 16 * 4096:
+        assert groups >= 132
+
+
+@pytest.mark.parametrize("f0,fk,h", [(39, 39, 20), (39, 20, 10), (39, 10, 10),
+                                     (5, 1, 1), (7, 13, 32)])
+def test_workspace_holds_the_dw_partials_and_the_staged_w(f0, fk, h):
+    """One row group's dW partial sums ([H][tile][4]: 4 columns of z a
+    tile, the last tile of each p padded, plus the bias tile) hold each of
+    the F0·Fk columns and the bias once for every h, in whole float4s; the
+    staged W ([pass][F0][H][8]) holds every weight, in whole float4s."""
+    floats = cin_kernel._dw_part_floats(f0, fk, h)
+    tiles = f0 * -(-fk // 4) + 1
+    assert floats == h * tiles * 4
+    assert floats % 4 == 0 and floats >= (f0 * fk + 1) * h
+    assert floats - (f0 * fk + 1) * h < 4 * f0 * h + 4 * h   # padding only
+    wt = cin_kernel._wt_floats(f0, fk, h)
+    passes = -(-(-(-fk // 4)) // 2)          # lane pairs of 4-q tiles
+    assert wt == passes * f0 * h * 8 and wt % 4 == 0
+    assert f0 * fk * h <= wt < f0 * (fk + 8) * h
+
+
 @pytest.mark.parametrize("layer_sizes", [(5, 3), (20, 10, 10)])
 def test_cin_apply_gradients_match_jax(layer_sizes):
     """Autograd through the port's `cin_layer` Function (plain versions on

@@ -106,6 +106,80 @@ def test_backward_kernel_matches_plain_version(cuda_device, n, fk, h):
         assert torch.equal(g, a)            # deterministic: no atomics
 
 
+def _bwd_inputs(dev, n, fk, h, seed):
+    gen = torch.Generator().manual_seed(seed)
+    x0v = torch.randn(n, 39, generator=gen).to(dev)
+    xkv = torch.randn(n, fk, generator=gen).to(dev)
+    w = (0.05 * torch.randn(39 * fk, h, generator=gen)).to(dev)
+    b = torch.randn(h, generator=gen).to(dev)
+    y = cin_kernel.cin_layer_reference(x0v, xkv, w, b)
+    dy = torch.randn(n, h, generator=gen).to(dev)
+    return x0v, xkv, w, y, dy
+
+
+def _assert_bwd_matches(got, ref, n):
+    """chip_smoke.py's tolerances: 1e-4 absolute and relative for dx0 and
+    dxk; dW and db are sums over all N rows, 1e-4·N/1024 absolute."""
+    for name, g, r in zip(("dx0", "dxk", "dw", "db"), got, ref):
+        atol = 1e-4 * (max(1.0, n / 1024) if name in ("dw", "db") else 1.0)
+        assert g.shape == r.shape, name
+        torch.testing.assert_close(g, r, rtol=1e-4, atol=atol, msg=name)
+
+
+@pytest.mark.parametrize("fk", [1, 10, 20, 39])
+@pytest.mark.parametrize("h", [1, 10, 20, 32])
+def test_cin_backward_kernel_at_every_tile_shape(cuda_device, fk, h):
+    """Fk and H on and off the kernels' tiles (4 q values a lane, 8 a lane
+    pair; 4 rows a thread up to H = 24, 2 above) at a ragged N."""
+    n = 3333
+    args = _bwd_inputs(cuda_device, n, fk, h, seed=fk * 100 + h)
+    got = cin_kernel.cin_layer_bwd(*args)
+    torch.cuda.synchronize()
+    _assert_bwd_matches(got, cin_kernel.cin_layer_backward_reference(*args),
+                        n)
+    for g, a in zip(got, cin_kernel.cin_layer_bwd(*args)):
+        assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("n", [0, 1, 100, 257, 3333])
+def test_cin_backward_kernel_at_small_and_ragged_n(cuda_device, n):
+    """N = 0 (no launch), one row, fewer rows than one block's tile (256),
+    one more than a tile, and a ragged N."""
+    args = _bwd_inputs(cuda_device, n, 39, 20, seed=n + 7)
+    before = cin_kernel.BWD_LAUNCHES
+    got = cin_kernel.cin_layer_bwd(*args)
+    torch.cuda.synchronize()
+    assert cin_kernel.BWD_LAUNCHES == before + (n > 0)
+    _assert_bwd_matches(got, cin_kernel.cin_layer_backward_reference(*args),
+                        n)
+    for g, a in zip(got, cin_kernel.cin_layer_bwd(*args)):
+        assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("fk,h", [(39, 20), (20, 10), (10, 10)])
+def test_cin_backward_kernel_replays_in_a_cuda_graph(cuda_device, fk, h):
+    """A call captured in a CUDA graph after a warm-up call, replayed on new
+    output gradients, equals an eager call bitwise (main-path shapes)."""
+    n = 16 * 4096
+    x0v, xkv, w, y, dy = _bwd_inputs(cuda_device, n, fk, h, seed=fk + h)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        cin_kernel.cin_layer_bwd(x0v, xkv, w, y, dy)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = cin_kernel.cin_layer_bwd(x0v, xkv, w, y, dy)
+    dy.copy_(torch.randn(dy.shape, generator=torch.Generator().manual_seed(3)))
+    graph.replay()
+    torch.cuda.synchronize()
+    eager = cin_kernel.cin_layer_bwd(x0v, xkv, w, y, dy)
+    for g, e in zip(out, eager):
+        assert torch.equal(g, e)
+    _assert_bwd_matches(out, cin_kernel.cin_layer_backward_reference(
+        x0v, xkv, w, y, dy), n)
+
+
 def test_cin_apply_trains_through_the_kernels(cuda_device):
     """``cin_apply`` on the card is differentiable (it was not: the forward
     kernel's output had no grad_fn), and its gradients match those of the
