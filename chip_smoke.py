@@ -24,10 +24,11 @@ without the package beside it. On a card it
      tolerance 1e-4 absolute and relative: 1521-term float32 sums in
      another order than cuBLAS; backward the same for dx0/dxk, and for
      dW/db, sums over all N rows, 1e-4 relative plus 1e-4·N/1024
-     absolute), the backward bitwise equal across two calls and after a
+     absolute), both bitwise equal across two calls and after a
      CUDA-graph replay at every shape; timed at B = 4096 back to back and
-     as device time in a CUDA graph, with the backward's device time split
-     by device operation (``torch.profiler``) at each layer;
+     as device time in a CUDA graph (the forward's device time also at
+     B = 1 and 200, the serving shapes), with the backward's device time
+     split by device operation (``torch.profiler``) at each layer;
    - segment sum: the big (837,632 rows) and small (4,096 rows) tables of
      DeepFM at batch 16384 with the engine's own ids, the fused engine's
      one table (638,976 ids into 840,704 × 17) and the wide model's
@@ -247,12 +248,14 @@ def _cin_inputs(gen, n, f0, fk, h, dev):
 
 
 def cin_forward_phase(cin_kernel, layers, dev) -> dict:
-    """CIN forward kernel vs plain version: errors at every shape, times at
+    """CIN forward kernel vs plain version: errors, bitwise repeats and
+    CUDA-graph replays at every shape; device time in a CUDA graph at every
+    N = 16·B (the serving and training shapes), back-to-back times at
     B = 4096."""
     gen = torch.Generator().manual_seed(1234)
     max_abs, ms, plain_ms, bound_ms, graph_ms = 0.0, 0.0, 0.0, 0.0, 0.0
     biggest = (0.0, "operations")
-    per_layer = []
+    per_layer, graph_by_n = [], {}
     for n in [16 * b for b in BATCHES] + [RAGGED_N]:
         for f0, fk, h in layers:
             x0v, xkv, w, b = _cin_inputs(gen, n, f0, fk, h, dev)
@@ -269,13 +272,27 @@ def cin_forward_phase(cin_kernel, layers, dev) -> dict:
                     f"{err.max().item():.3e}; vs f64: kernel "
                     f"{(got - ref64).abs().max().item():.3e} plain "
                     f"{(ref - ref64).abs().max().item():.3e}")
+            _check(ok, f"CIN forward kernel disagrees with its plain version "
+                       f"at N={n} Fk={fk} H={h}")
+
+            def kern():
+                return cin_kernel.cin_layer_fwd(x0v, xkv, w, b)
+
+            _check(torch.equal(kern(), got),
+                   f"CIN forward kernel not deterministic at N={n} Fk={fk}")
+            _check(_replays_bitwise(lambda: (kern(),)),
+                   f"CIN forward replayed in a CUDA graph differs from an "
+                   f"eager call at N={n} Fk={fk}")
+            line += " bitwise_repeat=True graph_replay_bitwise=True"
+            if n != RAGGED_N:
+                g_ms = _graph_ms(kern)
+                graph_by_n.setdefault(n, []).append(g_ms)
+                line += f" graph_ms={g_ms:.4f}"
             if n == 16 * BATCHES[-1]:
                 k_ms, p_ms = _timed_pair(
-                    lambda: cin_kernel.cin_layer_fwd(x0v, xkv, w, b),
+                    kern,
                     lambda: cin_kernel.cin_layer_reference(x0v, xkv, w, b),
                     50)
-                g_ms = _graph_ms(
-                    lambda: cin_kernel.cin_layer_fwd(x0v, xkv, w, b))
                 b_ms, b_by = _bound(*_cin_fwd_work(n, f0, fk, h))
                 if b_ms > biggest[0]:
                     biggest = (b_ms, b_by)
@@ -285,15 +302,14 @@ def cin_forward_phase(cin_kernel, layers, dev) -> dict:
                 graph_ms += g_ms
                 per_layer.append({"fk": fk, "h": h, "graph_ms": g_ms,
                                   "ms": k_ms, "bound_ms": b_ms})
-                line += (f" kernel_ms={k_ms:.4f} graph_ms={g_ms:.4f} "
-                         f"plain_ms={p_ms:.4f} bound_ms={b_ms:.4f}")
+                line += (f" kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+                         f"bound_ms={b_ms:.4f}")
             print(line, flush=True)
-            _check(ok, f"CIN forward kernel disagrees with its plain version "
-                       f"at N={n} Fk={fk} H={h}")
     # the bound is the sum of the layers' bounds; what bounds the largest
     return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": biggest[1],
-            "library_ms": None, "graph_ms": graph_ms, "layers": per_layer}
+            "library_ms": None, "graph_ms": graph_ms, "layers": per_layer,
+            "graph_ms_by_n": {str(n): t for n, t in graph_by_n.items()}}
 
 
 def cin_backward_phase(cin_kernel, layers, dev) -> dict:
@@ -1385,12 +1401,16 @@ def main() -> None:
         {"name": "cin_layer_fwd", "route": "cuda",
          "source": "recsys_tpu_torch/csrc/cin_layer.cu",
          "replaces": "recsys_tpu/ops/pallas_cin.py:149",
-         "note": "launches: xDeepFM serving; ms: three layers at B=4096 "
-                 "back to back; graph_ms: their device time in a CUDA graph",
-         "launches": served["xdeepfm"]["launches"]["cin_fwd"],
+         "note": "launches: xDeepFM training (serving_launches: xDeepFM "
+                 "serving); ms: three layers at B=4096 back to back; "
+                 "graph_ms: their device time in a CUDA graph; "
+                 "graph_ms_by_n: per layer, at N = 16*B for B in "
+                 f"{BATCHES}",
+         "launches": trained["xDeepFM B=4096"]["counts"]["cin_fwd"],
+         "serving_launches": served["xdeepfm"]["launches"]["cin_fwd"],
          **{k: fwd[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                 "bound_by", "library_ms", "graph_ms",
-                                "layers")}},
+                                "layers", "graph_ms_by_n")}},
         {"name": "cin_layer_bwd", "route": "cuda",
          "source": "recsys_tpu_torch/csrc/cin_backward.cu",
          "replaces": "recsys_tpu/ops/pallas_cin.py:180",

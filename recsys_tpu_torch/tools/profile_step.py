@@ -20,8 +20,9 @@ JSON line per model:
 - ``radix_sort_ms_per_step``: the device time per step of the radix
   sort's kernels (those whose name holds ``RadixSort``: the segment sums'
   key sorts);
-- ``cin_bwd_ms_per_step``: the device time per step of the CIN backward's
-  kernels (those whose name holds ``cin_bwd``; 0 for a model without a
+- ``cin_fwd_ms_per_step`` and ``cin_bwd_ms_per_step``: the device time
+  per step of the CIN forward's and the CIN backward's kernels (those
+  whose name holds ``cin_fwd`` and ``cin_bwd``; 0 for a model without a
   CIN);
 - ``top``: the five device operations with the most time per step.
 
@@ -97,14 +98,16 @@ def profile_model(name: str, engine: str, batch_size: int) -> dict:
                            WARMUP_STEPS + TIMED_STEPS)
         float(loss)
         torch.cuda.synchronize()
-    ops, busy_us, sort_us, cin_us, launches, per_op = 0, 0.0, 0.0, 0.0, 0, []
+    ops, busy_us, sort_us, launches, per_op = 0, 0.0, 0.0, 0, []
+    cin_us = {"cin_fwd": 0.0, "cin_bwd": 0.0}
     for evt in prof.key_averages():
         if evt.device_type == DeviceType.CUDA:
             us = _device_time_us(evt)
             ops += evt.count
             busy_us += us
             sort_us += us if "RadixSort" in evt.key else 0.0
-            cin_us += us if "cin_bwd" in evt.key else 0.0
+            for k in cin_us:
+                cin_us[k] += us if k in evt.key else 0.0
             per_op.append((us, evt.key))
         elif evt.key == "cudaLaunchKernel":
             launches += evt.count
@@ -118,7 +121,8 @@ def profile_model(name: str, engine: str, batch_size: int) -> dict:
             "device_idle_share": 1.0 - busy_ms / step_ms,
             "launch_calls_per_step": launches / PROFILED_STEPS,
             "radix_sort_ms_per_step": sort_us / 1e3 / PROFILED_STEPS,
-            "cin_bwd_ms_per_step": cin_us / 1e3 / PROFILED_STEPS,
+            **{f"{k}_ms_per_step": us / 1e3 / PROFILED_STEPS
+               for k, us in cin_us.items()},
             "top": [[key[:80], us / 1e3 / PROFILED_STEPS]
                     for us, key in per_op[:5]],
             "device": torch.cuda.get_device_name(0)}

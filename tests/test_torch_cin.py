@@ -61,9 +61,13 @@ def test_cin_apply_matches_jax(b, f0, d, layer_sizes):
                                **TOL)
 
 
-def test_cin_layer_matches_pallas_layer():
-    rng = np.random.default_rng(7)
-    n, f0, fk, h = 300, 39, 20, 10
+@pytest.mark.parametrize("f0,fk,h,seed", [(39, 39, 20, 46), (39, 20, 10, 7),
+                                          (39, 10, 10, 17)])
+def test_cin_layer_matches_pallas_layer(f0, fk, h, seed):
+    """Each layer shape of full-width xDeepFM against K3f
+    (``pallas_cin.cin_layer``, interpret mode on the CPU)."""
+    rng = np.random.default_rng(seed)
+    n = 300
     x0v = rng.standard_normal((n, f0)).astype(np.float32)
     xkv = rng.standard_normal((n, fk)).astype(np.float32)
     layer = _params(rng, f0, (fk, h))[1]
@@ -206,3 +210,61 @@ def test_cin_apply_gradients_match_jax(layer_sizes):
             np.testing.assert_allclose(tl[k].grad.numpy(), np.asarray(jl[k]),
                                        rtol=1e-5, atol=5e-5, err_msg=k)
     assert cin_kernel.BWD_LAUNCHES == 0   # CPU tensors: the plain backward
+
+
+_SASS = """
+        code for sm_90a
+                Function : _Z6kernelv
+        .headerflags    @"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   LDS R2, [R0] ;
+        /*0020*/                   LDS.128 R4, [R0+0x10] ;
+        /*0030*/                   FFMA R8, R2, R4, R8 ;
+        /*0040*/                   FFMA R9, R2, R5, R9 ;
+        /*0050*/                   FFMA R10, R2, R6, R10 ;
+        /*0060*/                   FMUL R3, R2, R2 ;
+        /*0070*/              @!P0 BRA 0x10 ;
+        /*0080*/                   LDS R2, [R0] ;
+        /*0090*/                   FFMA R8, R2, R2, R8 ;
+        /*00a0*/               @P1 BRA 0x80 ;
+        /*00b0*/                   BRA 0x0 ;
+        /*00c0*/                   EXIT ;
+                Function : _Z5otherv
+        /*0000*/                   FFMA R8, R2, R2, R8 ;
+        /*0010*/                   BRA 0x20 ;
+        /*0020*/                   EXIT ;
+"""
+
+
+def test_sass_loops_counts_the_innermost_loop_with_the_most_ffma():
+    """Of the loops that hold no other loop (the outer one, 0x0-0xb0, holds
+    both), the one with the most FFMAs; a forward branch is no loop."""
+    from recsys_tpu_torch.tools import sass_loops
+
+    loops = sass_loops.inner_loops(_SASS)
+    assert loops == {"_Z6kernelv": {"lds": 2, "ffma": 3, "fmul": 1,
+                                    "insns": 7, "ffma_per_lds": 1.5}}
+
+
+def test_sass_loops_reads_each_built_source(monkeypatch, capsys):
+    """One JSON line per source given (the CIN forward's by default), from
+    the SASS of the library that `cuda_build` built for it."""
+    import json
+    import subprocess
+
+    from recsys_tpu_torch.ops import cuda_build
+    from recsys_tpu_torch.tools import sass_loops
+
+    built, dumped = [], []
+    monkeypatch.setattr(cuda_build, "build_all", lambda srcs: built.extend(
+        srcs) or [s + ".so" for s in srcs])
+    monkeypatch.setattr(sass_loops, "_cuobjdump", lambda: "cuobjdump")
+    monkeypatch.setattr(subprocess, "run", lambda cmd, **kw: dumped.append(
+        cmd) or subprocess.CompletedProcess(cmd, 0, stdout=_SASS))
+    out = sass_loops.main([])
+    assert built == [cin_kernel.SOURCE]
+    assert dumped == [["cuobjdump", "-sass", cin_kernel.SOURCE + ".so"]]
+    assert [json.loads(line) for line in
+            capsys.readouterr().out.splitlines()] == out
+    assert out[0]["inner_loops"]["_Z6kernelv"]["ffma"] == 3
+    assert sass_loops.main(["a.cu", "b.cu"])[1]["source"] == "b.cu"

@@ -67,6 +67,96 @@ def test_kernel_refuses_bad_inputs_on_the_card(cuda_device):
         cin_kernel.cin_layer(x0v.half(), x0v.half(), w, b.to(cuda_device))
 
 
+def _fwd_inputs(dev, n, f0, fk, h, seed):
+    gen = torch.Generator().manual_seed(seed)
+    lim = (6.0 / (f0 * fk + h)) ** 0.5
+    x0v = torch.randn(n, f0, generator=gen).to(dev)
+    xkv = torch.randn(n, fk, generator=gen).to(dev)
+    w = torch.empty(f0 * fk, h).uniform_(-lim, lim, generator=gen).to(dev)
+    b = (0.1 * torch.randn(h, generator=gen)).to(dev)
+    return x0v, xkv, w, b
+
+
+def _assert_fwd_matches_and_repeats(args):
+    """The kernel within 1e-4 absolute and relative of the plain version,
+    and bitwise equal across two calls (one writer per output)."""
+    got = cin_kernel.cin_layer_fwd(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, cin_kernel.cin_layer_reference(*args),
+                               rtol=1e-4, atol=1e-4)
+    assert torch.equal(got, cin_kernel.cin_layer_fwd(*args))
+
+
+@pytest.mark.parametrize("h", [1, 3, 10, 13, 20, 32])
+@pytest.mark.parametrize("fk", [10, 39])
+def test_cin_forward_kernel_at_every_width(cuda_device, fk, h):
+    """H off and on a multiple of 4 (each W row padded to a float4 count)
+    over the whole range, at a ragged N; (39, 39, 32) is a W too large to
+    sit beside the row tiles, staged in chunks of p."""
+    _assert_fwd_matches_and_repeats(
+        _fwd_inputs(cuda_device, 3333, 39, fk, h, seed=fk * 100 + h))
+
+
+@pytest.mark.parametrize("n", [0, 1, 16, 127, 129, 3333, 16 * 4096])
+@pytest.mark.parametrize("h", [10, 20])
+def test_cin_forward_kernel_at_small_and_ragged_n(cuda_device, n, h):
+    """N = 0 (no launch), one row, a serving request's 16 rows, one less and
+    one more than a 128-row tile, a ragged N, and the training N, where each
+    block walks several tiles."""
+    args = _fwd_inputs(cuda_device, n, 39, 20, h, seed=n + h)
+    before = cin_kernel.LAUNCHES
+    _assert_fwd_matches_and_repeats(args)
+    assert cin_kernel.LAUNCHES == before + 2 * (n > 0)
+
+
+@pytest.mark.parametrize("f0,fk,h", [(5, 3, 4), (1, 1, 1), (64, 7, 6),
+                                     (200, 100, 8), (200, 200, 32),
+                                     (150, 150, 20), (150, 271, 13),
+                                     (201, 249, 1)])
+def test_cin_forward_kernel_at_other_field_counts(cuda_device, f0, fk, h):
+    """Field counts other than xDeepFM's: fewer p than lanes, one field,
+    an even F0; F0 + Fk too large for two tile buffers beside W (one
+    buffer, W in many chunks); a step of 8 values of p too large beside one
+    tile buffer (chunks of 5 and 6 values of p, lanes idle); and one value
+    of p too large beside a whole tile (tiles of half the rows)."""
+    _assert_fwd_matches_and_repeats(
+        _fwd_inputs(cuda_device, 1000, f0, fk, h, seed=f0 + fk + h))
+
+
+def test_cin_forward_kernel_reads_unaligned_rows(cuda_device):
+    """Row arrays that do not start on 16 bytes (a view one row in): the
+    tiles come in by 4-byte copies."""
+    x0v, xkv, w, b = _fwd_inputs(cuda_device, 1001, 39, 10, 10, seed=11)
+    wu = torch.empty(w.numel() + 1, device=cuda_device)[1:].view_as(w)
+    args = (x0v[1:], xkv[1:], wu.copy_(w), b)
+    assert all(t.data_ptr() % 16 for t in args[:3])
+    _assert_fwd_matches_and_repeats(args)
+
+
+@pytest.mark.parametrize("fk,h", [(39, 20), (20, 10), (10, 10)])
+def test_cin_forward_kernel_replays_in_a_cuda_graph(cuda_device, fk, h):
+    """A call captured in a CUDA graph after a warm-up call, replayed on new
+    inputs, equals an eager call bitwise (main-path shapes)."""
+    x0v, xkv, w, b = _fwd_inputs(cuda_device, 16 * 4096, 39, fk, h,
+                                 seed=fk + h)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        cin_kernel.cin_layer_fwd(x0v, xkv, w, b)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = cin_kernel.cin_layer_fwd(x0v, xkv, w, b)
+    xkv.copy_(torch.randn(xkv.shape,
+                          generator=torch.Generator().manual_seed(3)))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, cin_kernel.cin_layer_fwd(x0v, xkv, w, b))
+    torch.testing.assert_close(
+        out, cin_kernel.cin_layer_reference(x0v, xkv, w, b),
+        rtol=1e-4, atol=1e-4)
+
+
 def test_servable_on_the_card_matches_the_cpu(cuda_device, tmp_path):
     ccfg = CriteoConfig(cat_vocabs=(50,) * 20 + (3000,) * 6)
     mcfg = ModelConfig(name="xdeepfm", cin_layers=(20, 10, 10))
