@@ -67,7 +67,8 @@ without the package beside it. On a card it
    line each answer one request;
 4. training, full width at batch 16384 (xDeepFM at 4096) through
    ``fast.make_scanned_train_step_devgen`` in calls of K = 50 on a
-   device-resident synthetic dataset, 200 steps each: DeepFM, xDeepFM,
+   device-resident synthetic dataset, each step one replay of a captured
+   CUDA graph (the eval calls too), 200 steps each: DeepFM, xDeepFM,
    DCN, FM, DeepFM and DNN on the fused engine, and the wide model (FTRL
    at alpha 4.0, as the JAX results protocol trains it). The loss must be
    finite and fall, each step must launch
@@ -80,7 +81,14 @@ without the package beside it. On a card it
    1e-4 on every parameter (a tenth of one Adam step at lr 1e-3); for DNN,
    whose small table gradients make Adam's first steps amplify float32
    rounding past 1e-4, every gradient of one batch must match the CPU's
-   within 1e-4 of its leaf's largest instead;
+   within 1e-4 of its leaf's largest instead; the launch counts are
+   those of the kernels that ran, the graph's replays included; then, for
+   DeepFM, wide and xDeepFM, the graphed call against the same call run
+   eagerly from Python, from two states of one seed: every parameter, BN
+   stat and optimizer leaf bitwise equal after 50 steps and after 210,
+   the ex/s of each in 3 pairs of 50-step calls in alternating order, and
+   the host's kernel and graph launch calls a step of each
+   (``torch.profiler``, 10 steps);
 5. DIN training: full width (items 63,002, categories 802, D = 32,
    attention 80-40, MLP 100-50-20, dropout 0.1, Adam lr 1e-3) at batch
    1024 through ``loop.train_and_evaluate`` on host-fed batches of
@@ -126,6 +134,8 @@ K = 50                   # steps per host call
 TRAIN_STEPS = 200
 AUC_MARGIN = 0.02
 STEP_TOL = 1e-4
+GRAPH_TOL = 0.0          # graphed against eager: bitwise
+GRAPH_PAIRS = 3
 DIN_BATCHES = (1, 200, 1024)
 DIN_STEPS = 300
 WIDE_LR = 4.0            # FTRL alpha on batch-mean gradients (results.py)
@@ -1069,6 +1079,91 @@ def train_phase(name, ccfg, mcfg, batch_size, dev, cin_kernel, ss, rg, *,
             "losses": losses}
 
 
+def graph_vs_eager_phase(name, ccfg, mcfg, batch_size, dev, *,
+                         lr: float = 1e-3) -> dict:
+    """The devgen K-step call replaying one captured CUDA graph a step
+    against the same call run eagerly, kernel by kernel from Python, at
+    full width: two train states from one seed, one call of K steps each,
+    then every parameter, BN stat and optimizer leaf held equal (bitwise:
+    the same kernels on the same inputs, and each replay draws what the
+    eager step draws); GRAPH_PAIRS pairs of timed calls, the two modes in
+    alternating order (ex/s of each call); one call of 10 steps of each
+    under torch.profiler (host launch calls a step); the leaves held equal
+    again at the end. → numbers of the run."""
+    from recsys_tpu_torch.core import tree
+    from recsys_tpu_torch.data.criteo import synthetic_criteo
+    from recsys_tpu_torch.models.api import make_model
+    from recsys_tpu_torch.tools.profile_step import profile_call
+    from recsys_tpu_torch.train import fast
+    from recsys_tpu_torch.train import train_state as TS
+
+    model = make_model(name, ccfg, mcfg)
+    data = synthetic_criteo(16 * batch_size, ccfg)
+    staged = fast.stage_dataset(data, dev)
+    runs = {}
+    for mode in ("eager", "graphed"):
+        ts, tx = TS.create_train_state(model, 0, lr, dev)
+        fn = fast.make_scanned_train_step_devgen(
+            model, tx, len(data["label"]), batch_size,
+            graphed=mode == "graphed")
+        ts, loss = fn(ts, staged, K, 0)
+        runs[mode] = {"ts": ts, "fn": fn, "done": K, "loss": float(loss),
+                      "ex_s": []}
+
+    def max_diff() -> float:
+        leaves = [tree.leaves((r["ts"].params, r["ts"].model_state,
+                               r["ts"].opt_state)) for r in runs.values()]
+        return max(float((a - b).abs().max()) for a, b in zip(*leaves))
+
+    first = max_diff()
+    _check(first <= GRAPH_TOL and
+           runs["eager"]["loss"] == runs["graphed"]["loss"],
+           f"{name}: after {K} steps graphed and eager differ by {first} "
+           f"(tolerance {GRAPH_TOL}), losses {runs['eager']['loss']} and "
+           f"{runs['graphed']['loss']}")
+    for p in range(GRAPH_PAIRS):
+        for mode in (("eager", "graphed") if p % 2 == 0
+                     else ("graphed", "eager")):
+            r = runs[mode]
+            t0 = time.perf_counter()
+            r["ts"], loss = r["fn"](r["ts"], staged, K, r["done"])
+            float(loss)                       # waits for the last step
+            r["ex_s"].append(batch_size * K / (time.perf_counter() - t0))
+            r["done"] += K
+    for r in runs.values():
+        r["ts"], r["prof"] = profile_call(r["fn"], r["ts"], staged,
+                                          r["done"])
+    last = max_diff()
+    _check(last <= GRAPH_TOL, f"{name}: after {runs['eager']['done'] + 10} "
+                              f"steps graphed and eager differ by {last}")
+    out = {"max_abs_diff": (first, last)}
+    for mode, r in runs.items():
+        out[mode] = {"ex_s": r["ex_s"],
+                     "launch_calls_per_step": r["prof"][
+                         "launch_calls_per_step"],
+                     "graph_launches_per_step": r["prof"][
+                         "graph_launches_per_step"],
+                     "busy_ms_per_step": r["prof"][
+                         "device_busy_ms_per_step"]}
+    print(f"{name} at batch {batch_size}, graphed vs eager: parameters, BN "
+          f"and optimizer state equal after {K} steps and after "
+          f"{runs['eager']['done'] + 10} (max |diff| {first}, {last}; "
+          f"tolerance {GRAPH_TOL}); ex/s in alternating pairs: eager "
+          f"{['%.0f' % x for x in out['eager']['ex_s']]}, graphed "
+          f"{['%.0f' % x for x in out['graphed']['ex_s']]}; host launch "
+          "calls a step (cudaLaunchKernel + cudaGraphLaunch): eager "
+          f"{out['eager']['launch_calls_per_step']:.1f} + "
+          f"{out['eager']['graph_launches_per_step']:.1f}, graphed "
+          f"{out['graphed']['launch_calls_per_step']:.1f} + "
+          f"{out['graphed']['graph_launches_per_step']:.1f}; device busy "
+          f"{out['eager']['busy_ms_per_step']:.3f} / "
+          f"{out['graphed']['busy_ms_per_step']:.3f} ms a step", flush=True)
+    _check(round(out["graphed"]["graph_launches_per_step"], 6) == 1.0,
+           f"{name}: {out['graphed']['graph_launches_per_step']} graph "
+           "launches a step, want 1")
+    return out
+
+
 def train_cli_phase(ccfg, model_flags=(("deepfm", "split"), ("dcn", "fused"))
                     ) -> None:
     """``train_ctr train --device=cuda`` on synthetic shards, once for each
@@ -1386,6 +1481,18 @@ def main() -> None:
                          match="grads"),
         "wide (FTRL)": zoo("wide", reads=1, lr=WIDE_LR),
     }
+    graphs = {
+        "DeepFM": graph_vs_eager_phase("deepfm", ccfg, ModelConfig(), 16384,
+                                       dev),
+        "wide (FTRL)": graph_vs_eager_phase(
+            "wide", ccfg, ModelConfig(name="wide"), 16384, dev, lr=WIDE_LR),
+        "xDeepFM B=4096": graph_vs_eager_phase("xdeepfm", ccfg, xcfg, 4096,
+                                               dev),
+    }
+    print(f"graphed vs eager, ex/s of each call [{card}]: "
+          + "; ".join(f"{k}: eager {['%.0f' % x for x in v['eager']['ex_s']]}"
+                      f", graphed {['%.0f' % x for x in v['graphed']['ex_s']]}"
+                      for k, v in graphs.items()), flush=True)
     din = din_train_phase(din_train, din_eval, dev, rg, ss)
     print(f"training throughput [{card}]: "
           + ", ".join(f"{k} {v['ex_s']:.1f} ex/s" for k, v in trained.items())

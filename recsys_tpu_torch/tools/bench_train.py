@@ -1,7 +1,7 @@
 """Benchmark: DeepFM Criteo training throughput of the PyTorch port on one
 CUDA card — the port's counterpart of the JAX package's ``bench.py``.
 
-    python -m recsys_tpu_torch.tools.bench_train [batch] [steps]
+    python -m recsys_tpu_torch.tools.bench_train [batch] [steps] [--eager]
 
 Prints one JSON line ``{"metric": "deepfm_criteo_train_examples_per_sec_port",
 "value": N, "unit": "examples/s", "device": ...}``. The configuration and
@@ -9,8 +9,10 @@ defaults are ``bench.py``'s: the full Criteo feature space (39 fields,
 100k-capped hashed vocabs), embedding dim 16, DNN 100-100 with batch norm
 and dropout 0.5, TF-parity Adam at lr 1e-3, batch 16384, 200 steps in calls
 of K = 50, on a device-resident synthetic dataset of max(4·batch, 65536)
-rows with batch indices drawn on the device. One warm-up call (which also
-builds the kernels) is not timed; the timed calls end on a host read of
+rows with batch indices drawn on the device, each step one CUDA-graph
+replay (``--eager``: one kernel at a time from Python, the plain version
+it is compared with). One warm-up call (which also builds the kernels and
+captures the step) is not timed; the timed calls end on a host read of
 the loss. Without a CUDA card it fails.
 """
 
@@ -35,6 +37,8 @@ def main(argv: list[str] | None = None) -> dict:
     from recsys_tpu_torch.train import train_state as TS
 
     argv = sys.argv[1:] if argv is None else argv
+    eager = "--eager" in argv
+    argv = [a for a in argv if a != "--eager"]
     batch_size = int(argv[0]) if argv else 16384
     steps = int(argv[1]) if len(argv) > 1 else 200
     if not torch.cuda.is_available():
@@ -51,9 +55,9 @@ def main(argv: list[str] | None = None) -> dict:
     data = criteo.synthetic_criteo(max(4 * batch_size, 65536), ccfg)
     staged = fast.stage_dataset(data, device)
     step_fn = fast.make_scanned_train_step_devgen(
-        model, tx, len(data["label"]), batch_size)
+        model, tx, len(data["label"]), batch_size, graphed=not eager)
 
-    ts, loss = step_fn(ts, staged, K, 0)  # warm-up: builds the kernels
+    ts, loss = step_fn(ts, staged, K, 0)  # warm-up: builds, captures
     float(loss)
     calls = max(1, -(-steps // K))       # ceil: honour the requested steps
     t0 = time.perf_counter()
@@ -66,7 +70,8 @@ def main(argv: list[str] | None = None) -> dict:
     out = {"metric": "deepfm_criteo_train_examples_per_sec_port",
            "value": batch_size * K * calls / dt, "unit": "examples/s",
            "device": torch.cuda.get_device_name(0), "batch_size": batch_size,
-           "steps": K * calls, "final_loss": final_loss}
+           "steps": K * calls, "final_loss": final_loss,
+           "mode": "eager" if eager else "graphed"}
     print(json.dumps(out), flush=True)
     return out
 

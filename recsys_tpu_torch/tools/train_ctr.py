@@ -9,8 +9,9 @@
 ``train`` trains any model of the Criteo zoo (``--model.name`` fm, deepfm,
 dcn, xdeepfm, dnn or wide; ``--model.emb_engine`` split or fused; wide
 with the FTRL its meta declares, the rest with Adam) on the in-device path
-(`loop.train_and_evaluate_fast`) on ``--device`` (``cuda`` or ``cpu``;
-``cuda`` without a card fails): the
+(`loop.train_and_evaluate_fast`; on the card each step one CUDA-graph
+replay) on ``--device`` (``cuda`` or ``cpu``; ``cuda`` without a card
+fails): the
 ``part-r-*.npz`` shards of ``--data_dir`` (by default synthetic shards of
 ``--synthetic_rows`` rows written to ``./synthetic_criteo``), the last
 tenth of the shards held out for eval, periodic eval and checkpoints under

@@ -5,10 +5,17 @@
   per feature; a step's batch is a device-side row gather, so the steady
   state moves nothing from the host.
 - K optimizer steps run per host call. The JAX package fuses them into one
-  XLA program with ``lax.scan``; here a Python loop enqueues them, and
-  nothing in the loop waits for the device: the step counter, the Adam bias
-  correction, the batch indices and the loss all stay on the device, and
-  the caller reads the mean loss once per call.
+  XLA program with ``lax.scan``. Here, on CUDA, one step is captured as a
+  CUDA graph (`step_graph`) and replayed K times: per step the host
+  reseeds the generator (devgen) or copies the step's row of host-given
+  indices, then launches the graph once. The step body writes all it
+  changes in place (`train_state.make_inplace_train_step`), so nothing in
+  the call waits for the device: the step counter, the Adam bias
+  correction, the batch indices and the loss stay on the device, and the
+  caller reads the mean loss once per call.
+- ``graphed=False`` runs the same body eagerly, one kernel at a time from
+  Python: on the CPU, where there are no graphs, and on the card as the
+  plain version the graphed path is held against.
 """
 
 from __future__ import annotations
@@ -19,6 +26,8 @@ import numpy as np
 import torch
 
 from recsys_tpu_torch.models.api import Model
+from recsys_tpu_torch.train import metrics as M
+from recsys_tpu_torch.train import step_graph
 from recsys_tpu_torch.train import train_state as TS
 
 
@@ -39,27 +48,76 @@ def _take(data: dict, idx: torch.Tensor) -> dict:
     return {k: v.index_select(0, idx) for k, v in data.items()}
 
 
-def make_scanned_train_step(model: Model, tx):
+def _device(data: dict) -> torch.device:
+    return next(iter(data.values())).device
+
+
+def _run(graph: step_graph.StepGraph, graphed: bool | None, device, k: int,
+         held, new_static, host, step, generators=()):
+    """K steps of ``step(static)``; → the static tensors after them.
+
+    ``new_static()`` makes the tensors the step reads and writes besides
+    ``held`` (the train state and the data); ``host(i, static)`` does the
+    host's part of step ``i`` (at step 0 also the call's own: zero the
+    loss sum, copy a metric state in; then reseed or copy indices).
+    Graphed, the first step after a capture is its warm-up and the rest
+    replay the graph; eagerly (or for no step at all), each step runs
+    from Python."""
+    if not step_graph.use_graph(graphed, device, graph.name) or k == 0:
+        static = new_static()
+        for i in range(k):
+            host(i, static)
+            step(static)
+        return static
+    static, start = graph.static_for(held), 0
+    if static is None:
+        static, start = new_static(), 1
+        host(0, static)
+        graph.capture(held, static, lambda: step(static), generators)
+    for i in range(start, k):
+        host(i, static)
+        graph.replay()
+    return static
+
+
+def _train_static(batch_size: int, device):
+    """(index buffer, loss sum) of a train step."""
+    return (torch.empty((batch_size,), dtype=torch.int64, device=device),
+            torch.zeros((), dtype=torch.float32, device=device))
+
+
+def make_scanned_train_step(model: Model, tx, *, graphed: bool | None = None):
     """``steps(ts, data, idx [K, B]) -> (ts, mean_loss)``: K optimizer steps
     on host-given batch indices (deterministic; the parity tests use it).
-    ``idx`` may be a numpy array or a tensor."""
-    step = TS.make_train_step(model, tx)
+    ``idx`` may be a numpy array or a tensor. ``graphed`` (default: on
+    CUDA) replays one captured step per step; True off CUDA raises."""
+    body = TS.make_inplace_train_step(model, tx)
+    graph = step_graph.StepGraph("make_scanned_train_step")
 
     def steps(ts, data, idx_matrix):
-        first = next(iter(data.values()))
-        idx = torch.as_tensor(idx_matrix, dtype=torch.int64,
-                              device=first.device)
-        total = torch.zeros((), dtype=torch.float32, device=first.device)
-        for i in range(idx.shape[0]):
-            ts, loss = step(ts, _take(data, idx[i]))
-            total = total + loss
-        return ts, total / idx.shape[0]
+        device = _device(data)
+        idx = torch.as_tensor(idx_matrix, dtype=torch.int64, device=device)
+        k, b = idx.shape
+
+        def host(i, static):
+            if i == 0:
+                static[1].zero_()
+            static[0].copy_(idx[i])
+
+        def step(static):
+            body(ts, _take(data, static[0]), static[1])
+
+        static = _run(graph, graphed, device, k,
+                      (ts.params, ts.model_state, ts.opt_state, ts.rng, data),
+                      lambda: _train_static(b, device), host, step, (ts.rng,))
+        return ts._replace(step=ts.step + k), static[1] / k
 
     return steps
 
 
 def make_scanned_train_step_devgen(model: Model, tx, n_rows: int,
-                                   batch_size: int):
+                                   batch_size: int, *,
+                                   graphed: bool | None = None):
     """``steps(ts, data, k, first_step) -> (ts, mean_loss)``: K optimizer
     steps with batch indices drawn on the device, with replacement, from the
     train state's generator — no host-to-device traffic and no host read
@@ -67,36 +125,70 @@ def make_scanned_train_step_devgen(model: Model, tx, n_rows: int,
     ``first_step`` is the host's count of the steps ``ts`` has taken: step
     ``first_step + i`` reseeds the generator from (``ts.seed``, that step)
     before it draws its indices and dropout masks (`TS.reseed`), as the
-    reference folds the step into its key."""
-    step = TS.make_train_step(model, tx)
+    reference folds the step into its key. ``graphed`` (default: on CUDA)
+    replays one captured step per step; True off CUDA raises."""
+    body = TS.make_inplace_train_step(model, tx)
+    graph = step_graph.StepGraph("make_scanned_train_step_devgen")
 
     def steps(ts, data, k: int, first_step: int):
-        device = next(iter(data.values())).device
-        total = torch.zeros((), dtype=torch.float32, device=device)
-        for i in range(k):
+        device = _device(data)
+
+        def host(i, static):
+            if i == 0:
+                static[1].zero_()
             TS.reseed(ts, first_step + i)
-            idx = torch.randint(0, n_rows, (batch_size,), generator=ts.rng,
-                                device=device)
-            ts, loss = step(ts, _take(data, idx))
-            total = total + loss
-        return ts, total / k
+
+        def step(static):
+            idx, loss_sum = static
+            idx.random_(0, n_rows, generator=ts.rng)   # = torch.randint
+            body(ts, _take(data, idx), loss_sum)
+
+        static = _run(graph, graphed, device, k,
+                      (ts.params, ts.model_state, ts.opt_state, ts.rng, data),
+                      lambda: _train_static(batch_size, device), host, step,
+                      (ts.rng,))
+        return ts._replace(step=ts.step + k), static[1] / k
 
     return steps
 
 
-def make_scanned_eval(model: Model):
+def make_scanned_eval(model: Model, *, graphed: bool | None = None):
     """``eval_steps(params, model_state, data, idx [K, B], metric_state)
-    -> metric_state``: the streaming metrics over K batches."""
+    -> metric_state``: the streaming metrics over K batches. The step
+    updates a static metric state in place; the caller's state is copied
+    in once a call, and the result comes back as new tensors. ``graphed``
+    as for the train steps."""
     eval_step = TS.make_eval_step(model)
+    graph = step_graph.StepGraph("make_scanned_eval")
 
     def eval_steps(params, model_state, data, idx_matrix, metric_state):
-        first = next(iter(data.values()))
-        idx = torch.as_tensor(idx_matrix, dtype=torch.int64,
-                              device=first.device)
-        for i in range(idx.shape[0]):
-            metric_state = eval_step(params, model_state, metric_state,
-                                     _take(data, idx[i]))
-        return metric_state
+        device = _device(data)
+        idx = torch.as_tensor(idx_matrix, dtype=torch.int64, device=device)
+        k, b = idx.shape
+
+        def new_static():
+            return (torch.empty((b,), dtype=torch.int64, device=device),
+                    M.BinaryMetricState(*(torch.empty_like(t)
+                                          for t in metric_state)))
+
+        def host(i, static):
+            if i == 0:
+                for dst, src in zip(static[1], metric_state, strict=True):
+                    dst.copy_(src)
+            static[0].copy_(idx[i])
+
+        def step(static):
+            state = static[1]
+            new = eval_step(params, model_state, state,
+                            _take(data, static[0]))
+            for dst, src in zip(state, new):
+                dst.copy_(src)
+
+        static = _run(graph, graphed, device, k,
+                      (params, model_state, data,
+                       [tuple(t.shape) for t in metric_state]),
+                      new_static, host, step)
+        return M.BinaryMetricState(*(t.clone() for t in static[1]))
 
     return eval_steps
 

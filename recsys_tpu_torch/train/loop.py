@@ -6,7 +6,8 @@
   ``eval_every_steps`` and at the end, a checkpoint at every eval and every
   ``save_checkpoints_steps``.
 - `train_and_evaluate_fast`: the dataset on the device, K steps per host
-  call, eval and a checkpoint every ``eval_every_steps``.
+  call (on the card each step and each eval batch one CUDA-graph replay,
+  `fast`), eval and a checkpoint every ``eval_every_steps``.
 
 Both resume from the latest checkpoint of ``(params, model_state,
 opt_state)``. Every step draws its randomness from (``cfg.seed``, step)

@@ -108,7 +108,9 @@ def loss_and_grads(model: Model, params, model_state, batch,
 
 def make_train_step(model: Model, tx: optim.Optimizer):
     """``step(ts, batch) -> (ts, loss)``. The parameters and the optimizer
-    state of ``ts`` are updated in place; the loss stays on the device."""
+    state of ``ts`` are updated in place; the loss stays on the device.
+    The host-fed loop (`loop.train_and_evaluate`) steps with it; the K-step
+    calls of `fast` use `make_inplace_train_step`."""
 
     def step(ts: TrainState, batch):
         loss, new_ms, grads = loss_and_grads(model, ts.params,
@@ -117,6 +119,28 @@ def make_train_step(model: Model, tx: optim.Optimizer):
         return ts._replace(model_state=new_ms, step=ts.step + 1), loss
 
     return step
+
+
+def make_inplace_train_step(model: Model, tx: optim.Optimizer):
+    """``body(ts, batch, loss_sum)``: the step of `make_train_step` with
+    every change written into storage that outlives it, so that a CUDA
+    graph can capture the step once and replay it at the same addresses
+    (`fast`): the parameters and the optimizer state are updated in place
+    by ``tx``, the BN moving stats are copied into ``ts.model_state``'s
+    leaves, and the loss is added into the device scalar ``loss_sum``.
+    ``ts.step`` is left to the caller, which advances it once per call."""
+
+    def body(ts: TrainState, batch, loss_sum: torch.Tensor) -> None:
+        loss, new_ms, grads = loss_and_grads(model, ts.params,
+                                             ts.model_state, batch, ts.rng)
+        tx.update(grads, ts.opt_state, ts.params)
+        with torch.no_grad():
+            for dst, src in zip(tree_util.leaves(ts.model_state),
+                                tree_util.leaves(new_ms), strict=True):
+                dst.copy_(src)
+            loss_sum.add_(loss)
+
+    return body
 
 
 def make_eval_step(model: Model):

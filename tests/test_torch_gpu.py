@@ -625,3 +625,185 @@ def test_reshape_probes_equal_their_plain_version(cuda_device, vp, w):
     shifted = flat[1:1 + (vp - 1) * w]
     assert torch.equal(rp.via_reshape(shifted, w),
                        rp.reshape_probe_reference(shifted, w))
+
+
+# ---------------------------------------------------------------------------
+# the K-step calls as CUDA-graph replays (train/step_graph.py)
+# ---------------------------------------------------------------------------
+
+GRAPH_VOCABS = (50,) * 20 + (3000,) * 6
+# (model, engine, table reads a step, lr): the zoo and xDeepFM
+GRAPH_CASES = [("deepfm", "split", 2, 1e-3), ("deepfm", "fused", 1, 1e-3),
+               ("dcn", "split", 2, 1e-3), ("fm", "split", 2, 1e-3),
+               ("dnn", "fused", 1, 1e-3), ("wide", "split", 1, 4.0),
+               ("xdeepfm", "split", 2, 1e-3)]
+
+
+def _graph_model(name, engine, dropout=0.5):
+    ccfg = CriteoConfig(cat_vocabs=GRAPH_VOCABS)
+    mcfg = ModelConfig(name=name, embedding_dim=8, deep_layers=(32, 32),
+                       cin_layers=(20, 10, 10), dropout=dropout,
+                       emb_engine=engine)
+    return make_model(name, ccfg, mcfg), ccfg
+
+
+def _leaves(ts):
+    return tree_util.leaves((ts.params, ts.model_state, ts.opt_state))
+
+
+def _assert_bitwise(ts_a, ts_b):
+    for a, b in zip(_leaves(ts_a), _leaves(ts_b), strict=True):
+        assert torch.equal(a, b), float((a - b).abs().max())
+
+
+def _kernel_counts():
+    return np.array([ss.LAUNCHES, rg.LAUNCHES, cin_kernel.LAUNCHES,
+                     cin_kernel.BWD_LAUNCHES])
+
+
+@pytest.mark.parametrize("name,engine,reads,lr", GRAPH_CASES,
+                         ids=[f"{c[0]}-{c[1]}" for c in GRAPH_CASES])
+def test_graphed_calls_equal_eager_calls_bitwise(cuda_device, name, engine,
+                                                 reads, lr):
+    """Two devgen calls of K = 5 at dropout 0.5 from equal states, graphed
+    and eager: every parameter, BN stat and optimizer leaf and the mean
+    loss bitwise equal (every kernel on the path is bitwise repeatable and
+    each replay draws what the eager step draws); then the eval call,
+    graphed and eager, gives bitwise the same metric state."""
+    from recsys_tpu_torch.train import metrics as M
+
+    model, ccfg = _graph_model(name, engine)
+    data = fast.stage_dataset(synthetic_criteo(4096, ccfg), cuda_device)
+    out = {}
+    for graphed in (False, True):
+        ts, tx = TS.create_train_state(model, 0, lr, cuda_device)
+        steps = fast.make_scanned_train_step_devgen(model, tx, 4096, 512,
+                                                    graphed=graphed)
+        losses = []
+        for c in range(2):
+            ts, loss = steps(ts, data, 5, 5 * c)
+            losses.append(loss)
+        idx = np.arange(3 * 512).reshape(3, 512)
+        metrics = fast.make_scanned_eval(model, graphed=graphed)(
+            ts.params, ts.model_state, data, idx,
+            M.init_binary_metrics(device=cuda_device))
+        out[graphed] = (ts, losses, metrics)
+    (ts_e, l_e, m_e), (ts_g, l_g, m_g) = out[False], out[True]
+    assert int(ts_e.step) == int(ts_g.step) == 10
+    assert all(torch.equal(a, b) for a, b in zip(l_e, l_g))
+    _assert_bitwise(ts_e, ts_g)
+    assert all(torch.equal(a, b) for a, b in zip(m_e, m_g))
+    assert float(m_g.count) == 3 * 512
+
+
+@pytest.mark.parametrize("name,engine,reads", [
+    ("deepfm", "split", 2), ("wide", "split", 1), ("xdeepfm", "split", 2)])
+def test_graphed_launch_counts_are_reads_times_steps(cuda_device, name,
+                                                     engine, reads):
+    """Under replay the wrappers' counters count launches that ran: the
+    capture's own counts are taken back and every replay adds them."""
+    model, ccfg = _graph_model(name, engine)
+    data = fast.stage_dataset(synthetic_criteo(4096, ccfg), cuda_device)
+    ts, tx = TS.create_train_state(model, 0, 1e-3, cuda_device)
+    steps = fast.make_scanned_train_step_devgen(model, tx, 4096, 512)
+    cin = 3 if name == "xdeepfm" else 0
+    for c, k in enumerate((1, 7, 4)):     # capture in a call of one step
+        before = _kernel_counts()
+        ts, _ = steps(ts, data, k, c * 7)
+        torch.cuda.synchronize()
+        assert list(_kernel_counts() - before) == [reads * k, reads * k,
+                                                   cin * k, cin * k]
+
+
+def test_graphed_resume_continues_the_run_bitwise(cuda_device, tmp_path):
+    """12 steps of DeepFM at dropout 0.5 on the card through the graphed
+    fast loop, and 6 steps, a resume from their checkpoint and 6 more, in
+    calls of K = 4 (so the resume lands inside a call's span): bitwise the
+    same parameters, BN stats and optimizer state."""
+    from recsys_tpu_torch.core.config import TrainConfig
+    from recsys_tpu_torch.train import loop
+
+    model, ccfg = _graph_model("deepfm", "split")
+    data = synthetic_criteo(4096, ccfg)
+    evald = synthetic_criteo(1024, ccfg, start_row=10 ** 6)
+
+    def run(model_dir, num_steps):
+        cfg = TrainConfig(batch_size=256, learning_rate=1e-2,
+                          eval_every_steps=6, eval_steps=2, seed=5,
+                          model_dir=str(model_dir))
+        loop.train_and_evaluate_fast(model, data, evald, cfg,
+                                     num_steps=num_steps, device=cuda_device,
+                                     steps_per_call=4)
+        with np.load(model_dir / f"step_{num_steps}" / "arrays.npz") as z:
+            return {k: z[k] for k in z.files}
+
+    whole = run(tmp_path / "whole", 12)
+    run(tmp_path / "split", 6)
+    split = run(tmp_path / "split", 12)
+    assert whole.keys() == split.keys()
+    for k in whole:
+        np.testing.assert_array_equal(split[k], whole[k], err_msg=k)
+
+
+def test_graph_recaptures_for_a_new_state_or_dataset(cuda_device):
+    """One graphed step function called with a new train state, then with
+    another staged dataset: each call recaptures and gives what an eager
+    call gives on the same inputs, and never writes into the storage of
+    the state or data it was captured on before."""
+    model, ccfg = _graph_model("deepfm", "split")
+    data1 = fast.stage_dataset(synthetic_criteo(4096, ccfg), cuda_device)
+    data2 = fast.stage_dataset(synthetic_criteo(4096, ccfg, start_row=7777),
+                               cuda_device)
+
+    def fresh(seed):
+        return TS.create_train_state(model, seed, 1e-3, cuda_device)
+
+    ts1, tx = fresh(0)
+    graphed = fast.make_scanned_train_step_devgen(model, tx, 4096, 512)
+    eager = fast.make_scanned_train_step_devgen(model, tx, 4096, 512,
+                                                graphed=False)
+    ts1, _ = graphed(ts1, data1, 3, 0)
+    snap1 = [t.clone() for t in _leaves(ts1)]
+
+    ts2, _ = fresh(1)          # another state, the same optimizer
+    ts2, _ = graphed(ts2, data1, 3, 0)
+    ref2, _ = fresh(1)
+    ref2, _ = eager(ref2, data1, 3, 0)
+    _assert_bitwise(ts2, ref2)
+    assert all(torch.equal(a, b) for a, b in zip(_leaves(ts1), snap1))
+
+    ts1, _ = graphed(ts1, data2, 3, 3)        # the first state, new data
+    ref1, _ = fresh(0)
+    ref1, _ = eager(ref1, data1, 3, 0)
+    ref1, _ = eager(ref1, data2, 3, 3)
+    _assert_bitwise(ts1, ref1)
+    assert all(torch.equal(a, b) for a, b in zip(_leaves(ts2),
+                                                 _leaves(ref2)))
+
+
+def test_a_failed_capture_raises_and_runs_nothing_eagerly(cuda_device):
+    """A step that reads a value back to the host cannot be captured: the
+    call raises with the step function's name, and the steps after the
+    warm-up do not run eagerly in its place."""
+    import dataclasses
+
+    model, ccfg = _graph_model("fm", "split")
+
+    def apply(*args, **kwargs):
+        logits, state = model.apply(*args, **kwargs)
+        float(logits.sum())       # a host read: refused inside a capture
+        return logits, state
+
+    bad = dataclasses.replace(model, apply=apply)
+    data = fast.stage_dataset(synthetic_criteo(4096, ccfg), cuda_device)
+    ts, tx = TS.create_train_state(bad, 0, 1e-3, cuda_device)
+    steps = fast.make_scanned_train_step_devgen(bad, tx, 4096, 512)
+    before = _kernel_counts()
+    with pytest.raises(RuntimeError,
+                       match="make_scanned_train_step_devgen: CUDA graph "
+                             "capture failed"):
+        steps(ts, data, 5, 0)
+    torch.cuda.synchronize()
+    assert list(_kernel_counts() - before) == [2, 2, 0, 0]   # the warm-up
+    assert torch.cuda.current_stream() == torch.cuda.default_stream()
+    assert float(torch.ones(3, device=cuda_device).sum()) == 3.0
