@@ -92,15 +92,34 @@ without the package beside it. On a card it
 5. DIN training: full width (items 63,002, categories 802, D = 32,
    attention 80-40, MLP 100-50-20, dropout 0.1, Adam lr 1e-3) at batch
    1024 through ``loop.train_and_evaluate`` on host-fed batches of
-   ``synthetic_din_hard`` (40,000 users), 300 steps: the loss must fall,
+   ``synthetic_din_hard`` (40,000 users; through ``device_prefetch``, each
+   step one replay of a captured CUDA graph), 300 steps: the loss must fall,
    each step must launch the segment sum 5 times and the row gather 5
    times, the held-out AUC must beat the untrained model's by 0.02, the
    tables' gradients on the card must be non-zero, and 3 steps at dropout
    0 must match the CPU within 1e-4;
-6. ``train_ctr train`` (DeepFM, and DCN on the fused engine) and
+6. streaming DeepFM, full width at batch 16384: 1,048,576 synthetic rows
+   in 16 npz shards (and one more held out) on local disk, 200 steps
+   through ``loop.train_and_evaluate`` (``ShardSource``,
+   ``device_prefetch``, the graphed host-fed step): the loss must fall, the
+   held-out AUC rise by 0.02, each step launch the segment sum and the
+   row gather twice (honest counts under replay); then the host-fed step
+   graphed against the same step run eagerly, from one seed over the same
+   50 batches (every parameter, BN stat, optimizer leaf and loss bitwise
+   equal), the ex/s of each in 3 alternating pairs of 50-step runs with
+   the share of the wall time the consumer waited on the prefetch queue,
+   and the ex/s of the fast path on the same rows;
+7. DIN's host-fed step graphed against eager the same way, at batch 1024;
+8. ``train_ctr train`` (DeepFM, and DCN on the fused engine) and
    ``train_din train`` (``--device=cuda``) from the command line each exit
    0, print an eval AUC and leave a checkpoint; then ``train_din export``
-   writes a servable that loads on the card.
+   writes a servable that loads on the card;
+9. a 262,144-line Criteo-format TSV (about 20% of numeric and 10% of
+   categorical fields missing): the native host library must have built,
+   its parse must equal the pure-Python path on the first 5,000 rows, and
+   ``preprocess_tsv`` shards it (rows/s printed); ``train_ctr train
+   --streaming --device=cuda`` trains 100 steps on the shards and prints
+   an eval line, and ``train_ctr eval`` runs on the checkpoint it left.
 
 Float32 matrix products run in full float32:
 ``torch.backends.cuda.matmul.allow_tf32 = False`` (and cuDNN's TF32 off).
@@ -138,6 +157,12 @@ GRAPH_TOL = 0.0          # graphed against eager: bitwise
 GRAPH_PAIRS = 3
 DIN_BATCHES = (1, 200, 1024)
 DIN_STEPS = 300
+STREAM_SHARDS = 16
+STREAM_ROWS = 16 * 65_536      # 1,048,576 rows, about 220 MB of npz
+STREAM_STEPS = 200
+FED_STEPS = 50                 # graphed against eager, and each timed run
+TSV_ROWS = 262_144
+TSV_CHECK_ROWS = 5_000
 WIDE_LR = 4.0            # FTRL alpha on batch-mean gradients (results.py)
 PROBE_ROWS, PROBE_W = 837_632, 17
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
@@ -1348,6 +1373,275 @@ def din_cli_phase() -> None:
               "card", flush=True)
 
 
+def _fed_runs(model, batches_fn, dev, label: str) -> dict:
+    """The host-fed step (`fast.make_fed_train_step`) graphed, one replay a
+    step, against the same step run eagerly from Python: two train states
+    from one seed take the same FED_STEPS batches (``batches_fn()``, a
+    fresh host iterator with the same batches each time, through
+    `device_prefetch`), then every parameter, BN stat and optimizer leaf
+    and every step's loss are held equal (tolerance GRAPH_TOL = 0); then
+    GRAPH_PAIRS pairs of timed runs of FED_STEPS steps, the two modes in
+    alternating order, each through its own prefetcher started one step
+    before the window, with the share of the window the consumer waited on
+    the prefetch queue. → numbers of the run."""
+    from recsys_tpu_torch.core import tree
+    from recsys_tpu_torch.data.loader import device_prefetch
+    from recsys_tpu_torch.train import fast
+    from recsys_tpu_torch.train import train_state as TS
+
+    runs = {}
+    for mode in ("eager", "graphed"):
+        ts, tx = TS.create_train_state(model, 0, 1e-3, dev)
+        runs[mode] = {"ts": ts, "ex_s": [], "wait_share": [],
+                      "step": fast.make_fed_train_step(
+                          model, tx, graphed=mode == "graphed")}
+    losses = {mode: [] for mode in runs}
+    batches = device_prefetch(batches_fn(), dev)
+    for i, batch in zip(range(FED_STEPS), batches):
+        for mode, r in runs.items():
+            losses[mode].append(r["step"](r["ts"], batch, i))
+    batches.close()
+    leaves = [tree.leaves((r["ts"].params, r["ts"].model_state,
+                           r["ts"].opt_state)) for r in runs.values()]
+    diff = max(float((a - b).abs().max()) for a, b in zip(*leaves))
+    same = all(torch.equal(a, b) for a, b in zip(losses["eager"],
+                                                 losses["graphed"]))
+    _check(diff <= GRAPH_TOL and same,
+           f"{label}: after {FED_STEPS} host-fed steps graphed and eager "
+           f"differ by {diff} (tolerance {GRAPH_TOL}), losses equal: {same}")
+    done = FED_STEPS
+    for p in range(GRAPH_PAIRS):
+        for mode in (("eager", "graphed") if p % 2 == 0
+                     else ("graphed", "eager")):
+            r = runs[mode]
+            it = device_prefetch(batches_fn(), dev)
+            float(r["step"](r["ts"], next(it), done))
+            wait = 0.0
+            t0 = time.perf_counter()
+            for i in range(FED_STEPS):
+                tw = time.perf_counter()
+                batch = next(it)
+                wait += time.perf_counter() - tw
+                loss = r["step"](r["ts"], batch, done + 1 + i)
+            float(loss)                       # waits for the last step
+            wall = time.perf_counter() - t0
+            it.close()
+            b = len(batch["label"])
+            r["ex_s"].append(b * FED_STEPS / wall)
+            r["wait_share"].append(wait / wall)
+        done += FED_STEPS + 1
+    out = {"max_abs_diff": diff}
+    for mode, r in runs.items():
+        out[mode] = {"ex_s": r["ex_s"], "wait_share": r["wait_share"]}
+    print(f"{label}, host-fed, graphed vs eager: parameters, BN and "
+          f"optimizer state and every loss equal after {FED_STEPS} steps "
+          f"(max |diff| {diff}; tolerance {GRAPH_TOL}); ex/s in alternating "
+          f"pairs of {FED_STEPS} steps: eager "
+          f"{['%.0f' % x for x in out['eager']['ex_s']]}, graphed "
+          f"{['%.0f' % x for x in out['graphed']['ex_s']]}; share of the "
+          "wall time the consumer waited on the prefetch queue: eager "
+          f"{['%.4f' % x for x in out['eager']['wait_share']]}, graphed "
+          f"{['%.4f' % x for x in out['graphed']['wait_share']]}",
+          flush=True)
+    return out
+
+
+def streaming_phase(ccfg, dev, rg, ss) -> dict:
+    """Full-width DeepFM (dim 16, DNN 100-100 with BN and dropout 0.5, Adam
+    lr 1e-3) at batch 16384 streamed from STREAM_SHARDS npz shards of
+    synthetic rows on local disk (and one more held out): STREAM_STEPS
+    steps through ``loop.train_and_evaluate`` (`ShardSource`,
+    `device_prefetch`, the graphed host-fed step); the loss must fall, the
+    held-out AUC rise by AUC_MARGIN, each step launch the segment sum and
+    the row gather twice (the row gather twice a batch of eval too); then
+    the host-fed step graphed against eager (`_fed_runs`), and the fast
+    path (the same rows on the device, K steps a call) timed on the same
+    rows. → counts and numbers of the main path's run."""
+    from recsys_tpu_torch.core.config import ModelConfig, TrainConfig
+    from recsys_tpu_torch.data.criteo import write_synthetic_shards
+    from recsys_tpu_torch.data.loader import ShardSource
+    from recsys_tpu_torch.models.api import make_model
+    from recsys_tpu_torch.train import fast, loop
+    from recsys_tpu_torch.train import train_state as TS
+
+    b = 16384
+    model = make_model("deepfm", ccfg, ModelConfig())
+    per_shard = STREAM_ROWS // STREAM_SHARDS
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        paths = write_synthetic_shards(f"{tmp}/data",
+                                       STREAM_ROWS + per_shard,
+                                       STREAM_SHARDS + 1, ccfg)
+        write_s = time.perf_counter() - t0
+        train_paths, eval_paths = paths[:-1], paths[-1:]
+        nbytes = sum(os.path.getsize(p) for p in train_paths)
+        src = ShardSource(train_paths, b, seed=0, num_epochs=-1)
+        n_eval = per_shard // b
+        eval_fn = lambda: ShardSource(eval_paths, b,  # noqa: E731
+                                      shuffle=False, num_epochs=1)
+        cfg = TrainConfig(batch_size=b, learning_rate=1e-3,
+                          eval_every_steps=STREAM_STEPS, log_every_steps=50,
+                          save_checkpoints_steps=STREAM_STEPS,
+                          eval_steps=n_eval, model_dir=f"{tmp}/model")
+        ts0, _ = TS.create_train_state(model, cfg.seed, 1e-3, dev)
+        auc0 = loop.evaluate(model, ts0.params, ts0.model_state, eval_fn(),
+                             device=dev)["auc"]
+        del ts0
+        torch.cuda.synchronize()
+        counters = {"segment_sum": ss, "row_gather": rg}
+        _zero(counters)                  # the training path starts here
+        m = loop.train_and_evaluate(model, iter(src), eval_fn, cfg,
+                                    num_steps=STREAM_STEPS, device=dev,
+                                    resume=False)
+        counts = _read(counters)         # ... and ends here
+        print(f"streaming DeepFM at batch {b}: {STREAM_STEPS} steps over "
+              f"{STREAM_SHARDS} shards ({STREAM_ROWS} rows, {nbytes} bytes "
+              f"of npz, written in {write_s:.1f} s), logged loss "
+              f"{m['first_loss']:.5f} -> {m['final_loss']:.5f}, eval AUC "
+              f"{auc0:.4f} -> {m['auc']:.4f} on {int(m['count'])} held-out "
+              f"rows, {m['examples_per_sec']:.1f} ex/s (steps "
+              f"{STREAM_STEPS - 49}-{STREAM_STEPS}), {m['train_seconds']:.2f}"
+              f" s in all, launches {counts}", flush=True)
+        _check(np.isfinite(m["first_loss"]) and np.isfinite(m["final_loss"])
+               and m["final_loss"] < m["first_loss"],
+               f"streaming DeepFM: loss {m['first_loss']} -> "
+               f"{m['final_loss']}")
+        _check(m["auc"] >= auc0 + AUC_MARGIN,
+               f"streaming DeepFM: eval AUC {m['auc']} after training, "
+               f"{auc0} before")
+        _check(counts["segment_sum"] == 2 * STREAM_STEPS and
+               counts["row_gather"] == 2 * (STREAM_STEPS + n_eval),
+               f"streaming DeepFM: launches {counts} for {STREAM_STEPS} "
+               f"steps and {n_eval} eval batches, want "
+               f"{2 * STREAM_STEPS} segment sums and "
+               f"{2 * (STREAM_STEPS + n_eval)} row gathers")
+        fed = _fed_runs(model, lambda: iter(src), dev, "streaming DeepFM")
+        pipe = _pipeline_rates(src, dev)
+
+        parts = []
+        for p in train_paths:
+            with np.load(p) as z:
+                parts.append(dict(z))
+        staged = fast.stage_dataset(
+            {k: np.concatenate([q[k] for q in parts]) for k in parts[0]},
+            dev)
+        del parts
+        ts, tx = TS.create_train_state(model, 0, 1e-3, dev)
+        fn = fast.make_scanned_train_step_devgen(model, tx, STREAM_ROWS, b)
+        ts, loss = fn(ts, staged, K, 0)           # the capture
+        float(loss)
+        fast_ex_s = []
+        for c in range(GRAPH_PAIRS):
+            t0 = time.perf_counter()
+            ts, loss = fn(ts, staged, K, K * (c + 1))
+            float(loss)
+            fast_ex_s.append(b * K / (time.perf_counter() - t0))
+        del staged, ts, fn
+    print(f"streaming DeepFM against the fast path on the same rows (the "
+          f"dataset on the device, {K} steps a call): fast path ex/s "
+          f"{['%.0f' % x for x in fast_ex_s]}, streamed graphed "
+          f"{['%.0f' % x for x in fed['graphed']['ex_s']]}", flush=True)
+    return {"counts": counts, "ex_s": m["examples_per_sec"],
+            "auc": (auc0, m["auc"]), "fed": fed, "fast_ex_s": fast_ex_s,
+            "pipeline_rows_s": pipe}
+
+
+def _pipeline_rates(src, dev) -> dict:
+    """Rows/s of the input pipeline with no training step behind it, over
+    FED_STEPS batches after one (the shards cached in ``src`` already):
+    ``ShardSource`` alone on the host, and through ``device_prefetch`` to
+    the card (the last copy waited for)."""
+    from recsys_tpu_torch.data.loader import device_prefetch
+
+    rates = {}
+    for name in ("shard_source", "device_prefetch"):
+        it = iter(src) if name == "shard_source" else device_prefetch(
+            iter(src), dev)
+        rows = len(next(it)["label"]) * FED_STEPS
+        t0 = time.perf_counter()
+        for _ in range(FED_STEPS):
+            batch = next(it)
+        torch.cuda.current_stream().synchronize()
+        rates[name] = rows / (time.perf_counter() - t0)
+        it.close()
+        del batch
+    print(f"input pipeline alone, {FED_STEPS} batches: ShardSource "
+          f"{rates['shard_source']:.0f} rows/s on the host, through "
+          f"device_prefetch {rates['device_prefetch']:.0f} rows/s to the "
+          "card", flush=True)
+    return rates
+
+
+def din_fed_phase(train, dev) -> dict:
+    """Full-width DIN's host-fed step graphed against eager (`_fed_runs`)
+    on the batches ``train_din`` draws."""
+    from recsys_tpu_torch.tools import train_din
+
+    model, _ = _din_model(0.1)
+    return _fed_runs(model, lambda: train_din.batch_iter(
+        train, DIN_BATCHES[-1], seed=0), dev, "DIN")
+
+
+def tsv_phase(ccfg) -> dict:
+    """A raw Criteo-format TSV of TSV_ROWS synthetic lines → the native
+    parser held against the pure-Python path on its first TSV_CHECK_ROWS
+    rows → `preprocess_tsv` into shards → ``train_ctr train --streaming
+    --device=cuda`` for 100 steps → ``train_ctr eval`` on the checkpoint
+    it left."""
+    from recsys_tpu_torch.data import criteo, native
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tsv = f"{tmp}/day.tsv"
+        t0 = time.perf_counter()
+        criteo.write_synthetic_tsv(tsv, TSV_ROWS, seed=0)
+        write_s = time.perf_counter() - t0
+        _check(native.available(), "the native host library did not build "
+                                   "or load")
+        with open(tsv) as f:
+            lines = [next(f) for _ in range(TSV_CHECK_ROWS)]
+        labels, cont, cat, consumed = native.parse_criteo_bytes(
+            "".join(lines).encode(), ccfg.cat_vocabs)
+        want_labels, want_cont, want_cat = criteo.parse_tsv_chunk(lines)
+        same = (consumed == len("".join(lines).encode())
+                and np.array_equal(labels, want_labels)
+                and np.array_equal(cont, want_cont, equal_nan=True)
+                and np.array_equal(cat, criteo.hash_cat(want_cat, ccfg)))
+        _check(same, "the native TSV parse differs from the pure-Python "
+                     f"path on the first {TSV_CHECK_ROWS} rows")
+        t0 = time.perf_counter()
+        shards = criteo.preprocess_tsv(tsv, f"{tmp}/shards", ccfg,
+                                       rows_per_shard=32_768)
+        rows_s = TSV_ROWS / (time.perf_counter() - t0)
+        print(f"TSV: {TSV_ROWS} rows written in {write_s:.1f} s; the native "
+              f"parse equals the pure-Python path on the first "
+              f"{TSV_CHECK_ROWS} rows; preprocess_tsv (two passes: the "
+              f"means, then parse and shard) {rows_s:.0f} rows/s into "
+              f"{len(shards)} shards", flush=True)
+        flags = ["--device=cuda", f"--data_dir={tmp}/shards",
+                 f"--train.model_dir={tmp}/model", "--train.batch_size=16384",
+                 "--train.eval_steps=2"]
+        code, out = _run_cli("train_ctr", [
+            "train", "--streaming", "--train.num_steps=100",
+            "--train.eval_every_steps=50", "--train.log_every_steps=50"]
+            + flags, 600)
+        _check(code == 0, f"train_ctr train --streaming exited with {code}")
+        m = re.search(r"'auc': ([0-9.]+)", out)
+        _check(m is not None, "train_ctr train --streaming printed no eval "
+                              "AUC")
+        ckpts = sorted(os.listdir(f"{tmp}/model"))
+        _check("step_100" in ckpts, f"no checkpoint step_100 in {ckpts}")
+        code, out = _run_cli("train_ctr", ["eval"] + flags, 600)
+        _check(code == 0, f"train_ctr eval exited with {code}")
+        e = re.search(r"'auc': ([0-9.]+).*'count': ([0-9.]+)", out)
+        _check(e is not None and float(e.group(2)) > 0,
+               "train_ctr eval printed no eval AUC and count")
+    print(f"command-line streaming training on the preprocessed shards: "
+          f"eval AUC {m.group(1)} (random labels: about 0.5), checkpoints "
+          f"{ckpts}; train_ctr eval on it: AUC {e.group(1)} over "
+          f"{e.group(2)} rows", flush=True)
+    return {"rows_s": rows_s}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -1494,12 +1788,21 @@ def main() -> None:
                       f", graphed {['%.0f' % x for x in v['graphed']['ex_s']]}"
                       for k, v in graphs.items()), flush=True)
     din = din_train_phase(din_train, din_eval, dev, rg, ss)
+    stream = streaming_phase(ccfg, dev, rg, ss)
+    din_fed = din_fed_phase(din_train, dev)
     print(f"training throughput [{card}]: "
           + ", ".join(f"{k} {v['ex_s']:.1f} ex/s" for k, v in trained.items())
-          + f", DIN B={DIN_BATCHES[-1]} {din['ex_s']:.1f} ex/s (all "
-          "B=16384 unless stated)", flush=True)
+          + f", DIN B={DIN_BATCHES[-1]} {din['ex_s']:.1f} ex/s, streaming "
+          f"DeepFM {stream['ex_s']:.1f} ex/s (all B=16384 unless stated); "
+          "host-fed graphed vs eager ex/s: streaming DeepFM "
+          f"{['%.0f' % x for x in stream['fed']['graphed']['ex_s']]} vs "
+          f"{['%.0f' % x for x in stream['fed']['eager']['ex_s']]} (the fast "
+          f"path on the same rows {['%.0f' % x for x in stream['fast_ex_s']]}"
+          f"), DIN {['%.0f' % x for x in din_fed['graphed']['ex_s']]} vs "
+          f"{['%.0f' % x for x in din_fed['eager']['ex_s']]}", flush=True)
     train_cli_phase(ccfg)
     din_cli_phase()
+    tsv_phase(ccfg)
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
@@ -1542,7 +1845,8 @@ def main() -> None:
                  "launches elsewhere: "
                  + ", ".join(f"{k} {v['counts']['segment_sum']}"
                              for k, v in trained.items())
-                 + f", DIN {din['counts']['segment_sum']}",
+                 + f", DIN {din['counts']['segment_sum']}, streaming DeepFM "
+                 f"{stream['counts']['segment_sum']}",
          "launches": fused["segment_sum"],
          **{k: seg[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                 "bound_by", "library_ms", "shapes")}},
@@ -1551,7 +1855,9 @@ def main() -> None:
          "replaces": "scratch/rowdma_kernel.py:72",
          "note": "launches: DIN training (5 per step plus eval); "
                  f"fused-engine DeepFM training {fused['row_gather']} (one "
-                 "per step); ms: device time in a CUDA graph, DIN item table "
+                 "per step); streaming DeepFM "
+                 f"{stream['counts']['row_gather']} (2 per step plus eval); "
+                 "ms: device time in a CUDA graph, DIN item table "
                  "at B=1024 plus Criteo big table at B=16384; the plain "
                  "version is the library call, index_select",
          "launches": din["counts"]["row_gather"],

@@ -1,16 +1,20 @@
-"""Criteo data plane: feature transforms + the synthetic generator.
+"""Criteo data plane: feature transforms, the offline TSV preprocessor and
+the synthetic generator.
 
 A NumPy-only copy of ``recsys_tpu/data/criteo.py`` (same arrays for the
-same seed, pinned by tests/test_torch_data.py). Each example is
+same seed or the same TSV, pinned by tests/test_torch_data.py and
+tests/test_torch_pipeline.py). Each example is
 
     ids:   int32  [N, 39]  field-local ids (13 bucketized cont + 26 hashed cat)
     dense: float32 [N, 13] log-scaled continuous values
     label: float32 [N]
 
-The offline TSV preprocessor (``preprocess_tsv`` and the native parser
-behind it) belongs to the input pipeline and is not ported yet; serving
-and the in-device training path need the schema, the synthetic generator
-and its ``.npz`` shards.
+`preprocess_tsv` turns a raw Criteo TSV (label, 13 integers, 26 hex
+strings, tab-separated; empty fields missing) into ``part-r-NNNNN.npz``
+shards: missing continuous values take the column mean, categorical
+values are hashed ('NULL' when missing). It parses with the native host
+library (`native`) when it is built, else in pure Python; both give the
+same arrays.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from recsys_tpu_torch.core.config import CriteoConfig
-from recsys_tpu_torch.data import hashing
+from recsys_tpu_torch.data import hashing, native
 
 
 # ---------------------------------------------------------------------------
@@ -55,6 +59,92 @@ def hash_cat(raw_cat: np.ndarray, cfg: CriteoConfig) -> np.ndarray:
         col = np.where(col == "", cfg.null_token, col)
         out[:, j] = hashing.hash_bucket_array(col, vocab)
     return out
+
+
+# ---------------------------------------------------------------------------
+# TSV parsing (the pure-Python path; native/criteo_parser.cc is the fast
+# path, used when the host library is built)
+# ---------------------------------------------------------------------------
+
+def parse_tsv_chunk(lines: list[str]
+                    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Criteo TSV lines (label \\t 13 ints \\t 26 hex strings) → (labels,
+    cont with NaN for missing, cat object array with '' for missing)."""
+    n = len(lines)
+    labels = np.empty(n, np.float32)
+    cont = np.full((n, 13), np.nan, np.float32)
+    cat = np.empty((n, 26), object)
+    for i, line in enumerate(lines):
+        parts = line.rstrip("\n").split("\t")
+        labels[i] = float(parts[0])
+        for j in range(13):
+            v = parts[1 + j] if 1 + j < len(parts) else ""
+            cont[i, j] = float(v) if v != "" else np.nan
+        for j in range(26):
+            v = parts[14 + j] if 14 + j < len(parts) else ""
+            cat[i, j] = v
+    return labels, cont, cat
+
+
+def compute_means(tsv_path: str) -> np.ndarray:
+    """Pass 1: the mean of each continuous column over its present values
+    (the reference ETL's mean imputation)."""
+    sums = np.zeros(13, np.float64)
+    counts = np.zeros(13, np.int64)
+    with open(tsv_path) as f:
+        for line in f:
+            parts = line.rstrip("\n").split("\t")
+            for j in range(13):
+                v = parts[1 + j] if 1 + j < len(parts) else ""
+                if v != "":
+                    sums[j] += float(v)
+                    counts[j] += 1
+    return (sums / np.maximum(counts, 1)).astype(np.float32)
+
+
+def _parse(lines: list[str], cfg: CriteoConfig):
+    """(labels, cont with NaN for missing, hashed cat ids) of TSV lines:
+    the native parser when the host library is built, else Python."""
+    if native.available():
+        labels, cont, cat_ids, _ = native.parse_criteo_bytes(
+            "".join(lines).encode(), cfg.cat_vocabs)
+        return labels, cont, cat_ids
+    labels, cont, cat = parse_tsv_chunk(lines)
+    return labels, cont, hash_cat(cat, cfg)
+
+
+def preprocess_tsv(tsv_path: str, out_dir: str,
+                   cfg: CriteoConfig = CriteoConfig(),
+                   rows_per_shard: int = 200_000,
+                   bucketize_log: bool = False) -> list[str]:
+    """TSV → ``part-r-NNNNN.npz`` shards of ``rows_per_shard`` rows (the
+    last one shorter) and ``cont_means.npy`` in ``out_dir``; → the shard
+    paths. The means of a first pass (`compute_means`) impute the missing
+    continuous values."""
+    os.makedirs(out_dir, exist_ok=True)
+    means = compute_means(tsv_path)
+    np.save(os.path.join(out_dir, "cont_means.npy"), means)
+    shard_paths: list[str] = []
+
+    def flush(lines: list[str]) -> None:
+        labels, cont, cat_ids = _parse(lines, cfg)
+        cont = np.where(np.isnan(cont), means[None, :], cont)
+        ids = np.concatenate([bucketize_cont(cont, cfg, bucketize_log),
+                              cat_ids], axis=1)
+        path = os.path.join(out_dir, f"part-r-{len(shard_paths):05d}.npz")
+        np.savez(path, ids=ids, dense=log_transform(cont, cfg), label=labels)
+        shard_paths.append(path)
+
+    buf: list[str] = []
+    with open(tsv_path) as f:
+        for line in f:
+            buf.append(line)
+            if len(buf) >= rows_per_shard:
+                flush(buf)
+                buf = []
+    if buf:
+        flush(buf)
+    return shard_paths
 
 
 # ---------------------------------------------------------------------------
@@ -138,6 +228,36 @@ def synthetic_criteo(
     if _return_prob:
         out["_true_prob"] = prob
     return out
+
+
+_HEX = np.frombuffer(b"0123456789abcdef", dtype="S1")
+
+
+def write_synthetic_tsv(path: str, rows: int, seed: int = 0) -> None:
+    """A raw Criteo-format TSV of ``rows`` random lines: a 0/1 label, 13
+    integers in [0, 1000) with about 20% missing, 26 8-digit hex strings
+    with about 10% missing (the preprocessor's input, made from ``seed``;
+    the raw Criteo set is not in the repository)."""
+    rng = np.random.default_rng(seed)
+    chunk = 65_536
+    with open(path, "w") as f:
+        for lo in range(0, rows, chunk):
+            n = min(chunk, rows - lo)
+            label = rng.integers(0, 2, n)
+            cont = rng.integers(0, 1000, (n, 13))
+            cont_miss = rng.random((n, 13)) < 0.2
+            cats = rng.integers(0, 1 << 32, (n, 26), dtype=np.uint64)
+            cat_miss = rng.random((n, 26)) < 0.1
+            nibbles = np.stack([(cats >> np.uint64(28 - 4 * k)) & 15
+                                for k in range(8)], axis=-1)
+            hexes = _HEX[nibbles].view("S8")[..., 0].astype("U8")
+            cols = [label.astype(str).tolist()]
+            cols += [np.where(cont_miss[:, j], "",
+                              cont[:, j].astype(str)).tolist()
+                     for j in range(13)]
+            cols += [np.where(cat_miss[:, j], "", hexes[:, j]).tolist()
+                     for j in range(26)]
+            f.writelines("\t".join(r) + "\n" for r in zip(*cols))
 
 
 def write_synthetic_shards(out_dir: str, num_rows: int, num_shards: int,

@@ -1,9 +1,12 @@
-"""Builds and loads the port's hand-written CUDA kernels.
+"""Builds and loads the port's hand-written CUDA kernels and its host
+library.
 
 Each source under ``recsys_tpu_torch/csrc/`` has a plain C interface. It is
 compiled with ``nvcc`` for ``sm_90a`` at first use, into
 ``recsys_tpu_torch/_build/`` under a name keyed by the source's hash, and
-loaded with ctypes. Nothing is built when a module is imported.
+loaded with ctypes. A group of C++ sources (``.cc``: the repository's
+``native/`` host data plane) is linked by ``g++`` into one library the same
+way. Nothing is built when a module is imported.
 """
 
 from __future__ import annotations
@@ -40,24 +43,43 @@ def _nvcc() -> str:
                        f"needed to build the kernels in {CSRC}")
 
 
-def library_path(src: str) -> str:
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    stem = os.path.splitext(os.path.basename(src))[0]
-    return os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
+def _files(src: str | tuple[str, ...]) -> tuple[str, ...]:
+    return (src,) if isinstance(src, str) else tuple(src)
 
 
-def _command(src: str, out: str) -> list[str]:
+def library_path(src: str | tuple[str, ...]) -> str:
+    """Where the library of ``src`` (one source, or a tuple of sources
+    linked into one library) lives: named by the first source and keyed by
+    the hash of every source's bytes."""
+    h = hashlib.sha256()
+    for path in _files(src):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    stem = os.path.splitext(os.path.basename(_files(src)[0]))[0]
+    return os.path.join(BUILD_DIR, f"lib{stem}_{h.hexdigest()[:16]}.so")
+
+
+def _command(src: str | tuple[str, ...], out: str) -> list[str]:
+    files = list(_files(src))
+    if all(f.endswith(".cc") for f in files):
+        gxx = shutil.which("g++")
+        if gxx is None:
+            raise RuntimeError(f"no g++ on PATH to build {files}")
+        return [gxx, "-O3", "-shared", "-fPIC", "-pthread", "-o", out] + files
     return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
             "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
-            "-o", out, src]
+            "-o", out] + files
 
 
-def build_all(sources: list[str]) -> list[str]:
-    """Compile every source that has no library yet, one ``nvcc`` each, all
-    started together; → library paths in the order given. The compiler's
-    report (``-Xptxas -v``: registers, shared memory and spills of each
-    kernel) is kept beside each library as ``<path>.log``."""
+def build_all(sources: list) -> list[str]:
+    """Compile every source that has no library yet, one compiler each, all
+    started together; → library paths in the order given. A source is a
+    ``.cu`` path (``nvcc``) or a tuple of ``.cc`` paths (``g++``, one
+    library). The compiler's report (for ``nvcc``, ``-Xptxas -v``:
+    registers, shared memory and spills of each kernel) is kept beside each
+    library as ``<path>.log``. Each library is written to a temporary file
+    and published with one rename, so a process that builds the same
+    library at the same time, or loads it, never sees a partial file."""
     paths = [library_path(s) for s in sources]
     todo = [(s, p) for s, p in zip(sources, paths) if not os.path.exists(p)]
     if not todo:
@@ -76,7 +98,8 @@ def build_all(sources: list[str]) -> list[str]:
         for cmd, proc, tmp, path in jobs:
             log, _ = proc.communicate()
             if proc.returncode != 0:
-                failed.append(f"nvcc failed ({proc.returncode}):\n"
+                failed.append(f"{os.path.basename(cmd[0])} failed "
+                              f"({proc.returncode}):\n"
                               f"{' '.join(cmd)}\n{log}")
                 continue
             with open(path + ".log", "w") as f:

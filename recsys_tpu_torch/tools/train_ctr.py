@@ -2,30 +2,42 @@
 
     python -m recsys_tpu_torch.tools.train_ctr train --model.name=deepfm \
         --train.batch_size=16384 --train.num_steps=2000 --device=cuda \
-        [--data_dir=DIR | --synthetic_rows=N] [--train.model_dir=DIR]
+        [--data_dir=DIR | --synthetic_rows=N] [--train.model_dir=DIR] \
+        [--streaming | --hbm_data_budget=BYTES]
+    python -m recsys_tpu_torch.tools.train_ctr eval --data_dir=DIR ...
+    python -m recsys_tpu_torch.tools.train_ctr predict --data_dir=DIR ...
+    python -m recsys_tpu_torch.tools.train_ctr export --export_dir=./export ...
     python -m recsys_tpu_torch.tools.train_ctr serve --export_dir=./export \
         --device=cuda --port=8500
 
+Every task but ``serve`` reads the ``part-r-*.npz`` shards of
+``--data_dir`` (by default synthetic shards of ``--synthetic_rows`` rows
+written to ``./synthetic_criteo``) and holds the last tenth of them out
+for eval, runs on ``--device`` (``cuda`` or ``cpu``; ``cuda`` without a
+card fails) and accepts every ``--section.key=value`` of the run config,
+as in the JAX package.
+
 ``train`` trains any model of the Criteo zoo (``--model.name`` fm, deepfm,
 dcn, xdeepfm, dnn or wide; ``--model.emb_engine`` split or fused; wide
-with the FTRL its meta declares, the rest with Adam) on the in-device path
-(`loop.train_and_evaluate_fast`; on the card each step one CUDA-graph
-replay) on ``--device`` (``cuda`` or ``cpu``; ``cuda`` without a card
-fails): the
-``part-r-*.npz`` shards of ``--data_dir`` (by default synthetic shards of
-``--synthetic_rows`` rows written to ``./synthetic_criteo``), the last
-tenth of the shards held out for eval, periodic eval and checkpoints under
-``--train.model_dir``. Every ``--section.key=value`` of the run config is
-accepted, as in the JAX package. A training set over the device budget
-(``--hbm_data_budget`` bytes, 4 GiB by default) or ``--streaming`` needs
-the streaming input pipeline, which is not ported yet: the command exits.
+with the FTRL its meta declares, the rest with Adam), with periodic eval
+and checkpoints under ``--train.model_dir``, resuming from the latest. A
+training set under the device budget (``--hbm_data_budget`` bytes of
+shards, 4 GiB by default) is staged on the device
+(`loop.train_and_evaluate_fast`); one over it, or any with
+``--streaming``, streams from the shards (`loader.ShardSource` through
+`loader.device_prefetch` into `loop.train_and_evaluate`). On the card
+each step is one CUDA-graph replay either way.
+
+``eval``, ``predict`` and ``export`` restore the latest checkpoint (fresh
+weights, with a warning, when there is none): ``eval`` prints the
+streaming metrics over up to ``eval_steps * 10`` held-out batches,
+``predict`` the mean probability over the held-out batches, ``export``
+writes a servable (the JAX layout: either package loads it).
 
 ``serve`` loads the servable (exported by either package: a Criteo model
 or DIN, whose ``tools/train_din.py serve`` comes here) on ``--device``,
 answers one warm-up request, and serves REST on 127.0.0.1 (``--port=0``
 binds a free port and logs it).
-
-The tasks ``eval``, ``predict`` and ``export`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -111,20 +123,10 @@ def _load_all(paths: list[str]) -> dict[str, np.ndarray]:
     return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
 
 
-def _train(cfg, kv: dict, streaming: bool) -> dict:
+def _shards(cfg, kv: dict) -> tuple[list[str], list[str]]:
+    """(train, eval) shard paths: ``--data_dir``'s, or synthetic shards
+    written to ``./synthetic_criteo``; the last tenth held out for eval."""
     from recsys_tpu_torch.data import criteo
-    from recsys_tpu_torch.models.api import make_model
-    from recsys_tpu_torch.train import loop
-
-    device = device_from_flag(kv.get("device", "cuda"))
-    if streaming:
-        raise SystemExit("streaming input is not ported yet")
-    if cfg.model.name == "din":
-        raise SystemExit("DIN trains with recsys_tpu_torch.tools.train_din")
-    try:
-        model = make_model(cfg.model.name, cfg.criteo, cfg.model)
-    except ValueError as e:
-        raise SystemExit(str(e)) from None
 
     data_dir = kv.get("data_dir")
     if data_dir:
@@ -140,21 +142,75 @@ def _train(cfg, kv: dict, streaming: bool) -> dict:
         raise SystemExit(f"{data_dir}: want at least 2 part-r-*.npz shards "
                          "(one for eval)")
     n_eval = max(1, len(shard_paths) // 10)
-    train_paths, eval_paths = shard_paths[:-n_eval], shard_paths[-n_eval:]
-    budget = int(kv.get("hbm_data_budget", 4 << 30))
-    if sum(os.path.getsize(p) for p in train_paths) >= budget:
-        raise SystemExit(f"training set over the device budget ({budget} "
-                         "bytes): streaming input is not ported yet")
-    train_data = _load_all(train_paths)
-    num_steps = cfg.train.num_steps
-    if num_steps < 0:
-        num_steps = (cfg.train.num_epochs * len(train_data["label"])
-                     // cfg.train.batch_size)
-    metrics = loop.train_and_evaluate_fast(
-        model, train_data, _load_all(eval_paths), cfg.train,
-        num_steps=num_steps, device=device)
-    print(metrics, flush=True)
-    return metrics
+    return shard_paths[:-n_eval], shard_paths[-n_eval:]
+
+
+def _run_task(task: str, cfg, kv: dict, streaming: bool) -> dict:
+    import torch
+
+    from recsys_tpu_torch.data.loader import ShardSource, device_prefetch
+    from recsys_tpu_torch.models.api import make_model
+    from recsys_tpu_torch.train import loop
+    from recsys_tpu_torch.train import train_state as TS
+
+    device = device_from_flag(kv.get("device", "cuda"))
+    if cfg.model.name == "din":
+        raise SystemExit("DIN trains with recsys_tpu_torch.tools.train_din")
+    try:
+        model = make_model(cfg.model.name, cfg.criteo, cfg.model)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+    train_paths, eval_paths = _shards(cfg, kv)
+
+    def eval_batches():
+        return ShardSource(eval_paths, cfg.train.batch_size, shuffle=False,
+                           num_epochs=1)
+
+    if task == "train":
+        num_steps = cfg.train.num_steps
+        if num_steps < 0:
+            rows = 0
+            for p in train_paths:
+                with np.load(p) as z:
+                    rows += z["label"].shape[0]
+            num_steps = cfg.train.num_epochs * rows // cfg.train.batch_size
+        budget = int(kv.get("hbm_data_budget", 4 << 30))
+        if streaming or sum(os.path.getsize(p)
+                            for p in train_paths) >= budget:
+            src = ShardSource(train_paths, cfg.train.batch_size,
+                              seed=cfg.train.seed, num_epochs=-1)
+            metrics = loop.train_and_evaluate(
+                model, iter(src), eval_batches, cfg.train,
+                num_steps=num_steps, device=device)
+        else:
+            metrics = loop.train_and_evaluate_fast(
+                model, _load_all(train_paths), _load_all(eval_paths),
+                cfg.train, num_steps=num_steps, device=device)
+        print(metrics, flush=True)
+        return metrics
+
+    # eval / predict / export restore the trained weights
+    ts = loop.restored_state(model, cfg.train, device)
+    if task == "eval":
+        metrics = loop.evaluate(model, ts.params, ts.model_state,
+                                eval_batches(), device=device,
+                                max_steps=cfg.train.eval_steps * 10)
+        print(metrics, flush=True)
+        return metrics
+    if task == "predict":
+        predict = TS.make_predict_step(model)
+        with torch.inference_mode():
+            probs = [predict(ts.params, ts.model_state, b).cpu().numpy()
+                     for b in device_prefetch(eval_batches(), device)]
+        out = np.concatenate(probs)
+        print({"num_predictions": len(out), "mean_prob": float(out.mean())},
+              flush=True)
+        return {"probs": out}
+    from recsys_tpu_torch.serve.export import export_servable
+    d = export_servable(kv.get("export_dir", "./export"), cfg.model.name,
+                        ts.params, ts.model_state, cfg.model, cfg.criteo)
+    print({"export_dir": d}, flush=True)
+    return {"export_dir": d}
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -171,16 +227,13 @@ def main(argv: list[str] | None = None) -> dict:
                              f"not {extra or '--streaming'}")
         _serve(kv)
         return {}
-    if task != "train":
-        raise SystemExit(f"task {task!r} is not ported yet; the PyTorch "
-                         "port trains and serves (tasks 'train', 'serve')")
     from recsys_tpu_torch.core.config import RunConfig, apply_overrides
 
     try:
         cfg = apply_overrides(RunConfig(), overrides)
     except ValueError as e:
         raise SystemExit(str(e)) from None
-    return _train(cfg, kv, streaming)
+    return _run_task(task, cfg, kv, streaming)
 
 
 if __name__ == "__main__":

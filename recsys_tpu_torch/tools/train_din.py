@@ -17,8 +17,10 @@ dropout 0.1), ``--data=<path.npz>`` (a dataset saved with
 the examples is held out for eval. ``--device`` is ``cuda`` (the default;
 it fails without a card and never falls back) or ``cpu``.
 
-``train`` runs `loop.train_and_evaluate` (host-fed batches, periodic eval,
-checkpoints under ``--train.model_dir``, resume from the latest one).
+``train`` runs `loop.train_and_evaluate` (host-fed batches through
+`loader.device_prefetch`, on the card each step one CUDA-graph replay;
+periodic eval, checkpoints under ``--train.model_dir``, resume from the
+latest one).
 ``eval``, ``predict`` and ``export`` restore the latest checkpoint (fresh
 weights if there is none); ``export`` writes a servable that either
 package loads. ``serve`` is ``tools/train_ctr.py serve``: one serving stack
@@ -34,7 +36,6 @@ import sys
 import numpy as np
 import torch
 
-from recsys_tpu_torch.core.checkpoint import CheckpointManager
 from recsys_tpu_torch.core.config import (ModelConfig, RunConfig,
                                           apply_overrides)
 from recsys_tpu_torch.data import amazon
@@ -46,8 +47,6 @@ from recsys_tpu_torch.train import train_state as TS
 _TASKS = ("train", "eval", "predict", "export", "serve")
 _FLAT = ("data", "export_dir", "port", "device", "synthetic_users",
          "item_vocab", "cate_vocab")
-
-log = logging.getLogger("recsys_tpu_torch")
 
 
 def _parse(argv: list[str]):
@@ -141,12 +140,7 @@ def main(argv: list[str] | None = None) -> dict:
         return metrics
 
     # eval / predict / export restore the trained weights
-    ckpt = CheckpointManager(cfg.train.model_dir, cfg.train.keep_checkpoint_max)
-    ts, _ = TS.create_train_state(model, cfg.train.seed,
-                                  cfg.train.learning_rate, device)
-    if ckpt.latest_step() is None:
-        log.warning("no checkpoint in %s; fresh params", cfg.train.model_dir)
-    ts = loop._resume(ts, ckpt)
+    ts = loop.restored_state(model, cfg.train, device)
 
     if task == "eval":
         metrics = loop.evaluate(model, ts.params, ts.model_state,

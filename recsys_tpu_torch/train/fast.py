@@ -57,9 +57,10 @@ def _run(graph: step_graph.StepGraph, graphed: bool | None, device, k: int,
     """K steps of ``step(static)``; → the static tensors after them.
 
     ``new_static()`` makes the tensors the step reads and writes besides
-    ``held`` (the train state and the data); ``host(i, static)`` does the
-    host's part of step ``i`` (at step 0 also the call's own: zero the
-    loss sum, copy a metric state in; then reseed or copy indices).
+    ``held`` (the train state, the data and the static tensors' shapes:
+    the graph's key); ``host(i, static)`` does the host's part of step
+    ``i`` (at step 0 also the call's own: zero the loss sum, copy a metric
+    state in; then reseed or copy indices or a batch).
     Graphed, the first step after a capture is its warm-up and the rest
     replay the graph; eagerly (or for no step at all), each step runs
     from Python."""
@@ -107,8 +108,10 @@ def make_scanned_train_step(model: Model, tx, *, graphed: bool | None = None):
         def step(static):
             body(ts, _take(data, static[0]), static[1])
 
+        # the key holds the index buffer's width: a new width captures anew
         static = _run(graph, graphed, device, k,
-                      (ts.params, ts.model_state, ts.opt_state, ts.rng, data),
+                      (ts.params, ts.model_state, ts.opt_state, ts.rng, data,
+                       b),
                       lambda: _train_static(b, device), host, step, (ts.rng,))
         return ts._replace(step=ts.step + k), static[1] / k
 
@@ -152,6 +155,55 @@ def make_scanned_train_step_devgen(model: Model, tx, n_rows: int,
     return steps
 
 
+def make_fed_train_step(model: Model, tx, *, graphed: bool | None = None):
+    """``step(ts, batch, step_idx) -> loss``: one optimizer step on a batch
+    already on the device (`loader.device_prefetch`'s), the host-fed
+    loop's step (`loop.train_and_evaluate`). ``step_idx`` is the host's
+    count of the steps ``ts`` has taken; the step reseeds the generator
+    from (``ts.seed``, ``step_idx``) before it draws its dropout masks.
+    ``ts.step`` is left to the caller. → the step's loss, a new device
+    scalar.
+
+    Graphed (by default on CUDA; True off CUDA raises), the step is
+    captured once per train state and batch layout and replayed: the host
+    copies the batch, device to device on the current stream, into the
+    graph's static batch buffers, reseeds, and launches the graph, which
+    zeroes its static loss first. Only that copy is ordered before the
+    replay, so nothing writes a buffer a running replay reads, while the
+    prefetcher's copy of the next batch overlaps it. The key holds every
+    leaf, the generator and each batch tensor's shape and type, so a new
+    history length P or a short batch captures anew. ``graphed=False`` runs
+    the same body eagerly, from Python."""
+    body = TS.make_inplace_train_step(model, tx)
+    graph = step_graph.StepGraph("make_fed_train_step")
+
+    def step(ts, batch: dict, step_idx: int) -> torch.Tensor:
+        device = _device(batch)
+        layout = {k: (tuple(v.shape), v.dtype) for k, v in batch.items()}
+
+        def new_static():
+            """(loss, batch buffers)."""
+            return (torch.zeros((), dtype=torch.float32, device=device),
+                    {k: torch.empty_like(v) for k, v in batch.items()})
+
+        def host(i, static):
+            for k, v in batch.items():
+                static[1][k].copy_(v)
+            TS.reseed(ts, step_idx)
+
+        def run(static):
+            static[0].zero_()
+            body(ts, static[1], static[0])
+
+        static = _run(graph, graphed, device, 1,
+                      (ts.params, ts.model_state, ts.opt_state, ts.rng,
+                       layout),
+                      new_static, host, run, (ts.rng,))
+        return static[0].clone()
+
+    return step
+
+
 def make_scanned_eval(model: Model, *, graphed: bool | None = None):
     """``eval_steps(params, model_state, data, idx [K, B], metric_state)
     -> metric_state``: the streaming metrics over K batches. The step
@@ -185,7 +237,7 @@ def make_scanned_eval(model: Model, *, graphed: bool | None = None):
                 dst.copy_(src)
 
         static = _run(graph, graphed, device, k,
-                      (params, model_state, data,
+                      (params, model_state, data, b,
                        [tuple(t.shape) for t in metric_state]),
                       new_static, host, step)
         return M.BinaryMetricState(*(t.clone() for t in static[1]))

@@ -30,6 +30,9 @@ therefore draws what the eager step ``s`` draws.
 - **Launch counts.** The kernel wrappers count launches in Python, which
   a replay does not run. The counts a capture adds are taken back, and
   added again at every replay, so the counters count launches that ran.
+- **Other threads.** The capture fails only the capturing thread's
+  unsafe calls, so the prefetcher's transfer thread may keep copying on
+  its own stream while a step is captured.
 - **No fallback.** A capture or replay that fails raises, naming the
   step; nothing runs the eager loop in its place.
 """
@@ -125,13 +128,17 @@ class StepGraph:
         for gen in generators:
             graph.register_generator_state(gen)
         # as torch.cuda.graph does, without its stream left behind when
-        # the capture fails: free the cache, then capture on the side stream
+        # the capture fails: free the cache, then capture on the side
+        # stream. The capture mode is thread_local: another thread's CUDA
+        # calls (`loader.device_prefetch` allocating, copying and waiting
+        # on events on its own stream) go on during the capture, where the
+        # default global mode would fail them and break the capture.
         torch.cuda.synchronize(device)
         torch.cuda.empty_cache()
         before = _counts()
         try:
             with torch.cuda.stream(side):
-                graph.capture_begin()
+                graph.capture_begin(capture_error_mode="thread_local")
                 try:
                     step()
                 finally:

@@ -13,6 +13,9 @@ Tolerance 1e-4 absolute and relative unless a test says otherwise: float32
 sums of up to 1521 terms, taken in another order than cuBLAS takes them.
 """
 
+import threading
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -807,3 +810,217 @@ def test_a_failed_capture_raises_and_runs_nothing_eagerly(cuda_device):
     assert list(_kernel_counts() - before) == [2, 2, 0, 0]   # the warm-up
     assert torch.cuda.current_stream() == torch.cuda.default_stream()
     assert float(torch.ones(3, device=cuda_device).sum()) == 3.0
+
+
+# ------------------------------------------------------ the host-fed pipeline
+
+def _din_batches_on(device, ps, b=256):
+    """DIN batches (full vocabs) with histories cut or zero-padded to each
+    P of ``ps``, staged on ``device``."""
+    from recsys_tpu_torch.models.din import CATE_VOCAB, ITEM_VOCAB
+
+    ds = amazon.synthetic_din_hard(n_users=2000, item_vocab=ITEM_VOCAB,
+                                   cate_vocab=CATE_VOCAB)
+    out = []
+    for i, p in enumerate(ps):
+        rows = slice(i * b, (i + 1) * b)
+        batch = {"i_id": ds.i_id[rows], "i_cate": ds.i_cate[rows],
+                 "label": ds.label[rows]}
+        for k in ("hist_iid", "hist_cate"):
+            h = np.zeros((b, p), np.int32)
+            w = min(p, getattr(ds, k).shape[1])
+            h[:, :w] = getattr(ds, k)[rows, :w]
+            batch[k] = h
+        out.append(fast.stage_dataset(batch, device))
+    return out
+
+
+def _din_model_on_card(dropout=0.1):
+    from recsys_tpu_torch.models.din import CATE_VOCAB, ITEM_VOCAB
+
+    return make_model("din", ITEM_VOCAB, CATE_VOCAB, ModelConfig(
+        name="din", embedding_dim=32, use_bn=False, dropout=dropout))
+
+
+def _fed_steps(model, batches, device, graphed):
+    ts, tx = TS.create_train_state(model, 0, 1e-3, device)
+    step = fast.make_fed_train_step(model, tx, graphed=graphed)
+    losses = [step(ts, batch, 3 + i) for i, batch in enumerate(batches)]
+    return ts, losses
+
+
+@pytest.mark.parametrize("name", ["deepfm", "din"])
+def test_fed_step_graphed_equals_eager_bitwise(cuda_device, name,
+                                               monkeypatch):
+    """The host-fed step replaying its graph against the same step run
+    eagerly, 6 batches at dropout 0.5 (DIN 0.1) from equal states: every
+    leaf and every loss bitwise equal; one capture for one batch layout,
+    and the launch counts those of the steps that ran."""
+    from recsys_tpu_torch.train import step_graph
+
+    if name == "deepfm":
+        model, ccfg = _graph_model("deepfm", "split")
+        batches = [fast.stage_dataset(synthetic_criteo(
+            512, ccfg, start_row=600 * i), cuda_device) for i in range(6)]
+        per_step = [2, 2, 0, 0]
+    else:
+        model = _din_model_on_card()
+        batches = _din_batches_on(cuda_device, [32] * 6)
+        per_step = [5, 5, 0, 0]
+    captures = []
+    real = step_graph.StepGraph.capture
+    monkeypatch.setattr(step_graph.StepGraph, "capture",
+                        lambda self, *a, **k: (captures.append(self.name),
+                                               real(self, *a, **k))[1])
+    ts_e, l_e = _fed_steps(model, batches, cuda_device, graphed=False)
+    before = _kernel_counts()
+    ts_g, l_g = _fed_steps(model, batches, cuda_device, graphed=True)
+    torch.cuda.synchronize()
+    assert list(_kernel_counts() - before) == [6 * n for n in per_step]
+    assert captures == ["make_fed_train_step"]
+    assert all(torch.equal(a, b) for a, b in zip(l_e, l_g, strict=True))
+    _assert_bitwise(ts_e, ts_g)
+
+
+def test_fed_step_recaptures_at_a_new_history_length(cuda_device,
+                                                     monkeypatch):
+    """DIN at P = 16, then 32, then 16 again: each new layout captures
+    anew (never replays into buffers of another shape), bitwise the eager
+    steps."""
+    from recsys_tpu_torch.train import step_graph
+
+    captures = []
+    real = step_graph.StepGraph.capture
+    monkeypatch.setattr(step_graph.StepGraph, "capture",
+                        lambda self, *a, **k: (captures.append(self.name),
+                                               real(self, *a, **k))[1])
+    model = _din_model_on_card()
+    batches = _din_batches_on(cuda_device, [16, 16, 32, 32, 16])
+    ts_e, l_e = _fed_steps(model, batches, cuda_device, graphed=False)
+    ts_g, l_g = _fed_steps(model, batches, cuda_device, graphed=True)
+    assert captures == ["make_fed_train_step"] * 3
+    assert all(torch.equal(a, b) for a, b in zip(l_e, l_g, strict=True))
+    _assert_bitwise(ts_e, ts_g)
+
+
+def test_device_prefetch_on_the_card_gives_the_host_arrays(cuda_device):
+    from recsys_tpu_torch.data.loader import device_prefetch
+
+    rng = np.random.default_rng(0)
+    host = [{"ids": rng.integers(0, 1 << 30, (4096, 39)).astype(np.int32),
+             "dense": rng.random((4096, 13)).astype(np.float32),
+             "mask": rng.random(4096) < 0.5} for _ in range(7)]
+    got = []
+    for batch in device_prefetch(iter(host), cuda_device):
+        assert batch["ids"].device.type == "cuda"
+        # the consumer's stream has waited on the copy: read it there
+        got.append({k: v.clone() for k, v in batch.items()})
+    assert len(got) == len(host)
+    for g, h in zip(got, host):
+        assert g["ids"].dtype == torch.int64
+        assert g["dense"].dtype == torch.float32
+        assert g["mask"].dtype == torch.bool
+        for k in h:
+            np.testing.assert_array_equal(g[k].cpu().numpy(), h[k],
+                                          err_msg=k)
+
+
+def test_pinned_slots_are_reused_only_after_their_copy(cuda_device,
+                                                       monkeypatch):
+    """A ring of 2 pinned slots and 3 batches of 64 MB: the third batch
+    writes slot 0 again only after waiting on the event behind slot 0's
+    copy, reuses slot 0's pinned buffer, and the first batch's device copy
+    still holds the first batch."""
+    from recsys_tpu_torch.data import loader
+
+    waited = []
+
+    class Event(torch.cuda.Event):
+        def synchronize(self):
+            waited.append(self)
+            super().synchronize()
+
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    stager = loader._CudaStager(cuda_device,
+                                torch.cuda.current_stream(cuda_device), 2)
+    host = [{"x": np.full(16 << 20, i, np.float32)} for i in range(3)]
+    out = [stager(h) for h in host[:2]]
+    pinned0 = stager.ring[0]["x"]
+    assert pinned0.is_pinned() and not waited
+    out.append(stager(host[2]))
+    assert waited == [out[0][1]]                 # slot 0's own event
+    assert stager.ring[0]["x"] is pinned0        # the buffer was reused
+    for (dev, event), h in zip(out, host):
+        torch.cuda.current_stream().wait_event(event)
+        assert torch.equal(dev["x"].cpu(), torch.from_numpy(h["x"]))
+
+
+def test_device_prefetch_raises_a_transfer_error_on_the_card(cuda_device):
+    from recsys_tpu_torch.data.loader import device_prefetch
+
+    def source():
+        yield {"x": np.zeros(4, np.float32)}
+        yield {"x": np.array([object()])}          # torch cannot take it
+        yield {"x": np.zeros(4, np.float32)}
+
+    it = device_prefetch(source(), cuda_device)
+    assert next(it)["x"].device.type == "cuda"
+    with pytest.raises(TypeError):
+        next(it)
+
+
+def test_fed_step_captures_while_a_stager_copies(cuda_device):
+    """Four captures of the fed step (DeepFM, a new batch width for each,
+    so each empties the allocator's cache and captures anew) while a
+    second thread stages batches of changing shapes through a 2-slot
+    pinned ring, as `device_prefetch`'s transfer thread does: fresh pinned
+    slots, device allocations (real ones: the cache was emptied, and the
+    blocks the stager frees wait for the capture's end) and waits on a
+    slot's event fall inside the captures. Neither thread's calls fail,
+    and the graphed steps equal the eager ones bitwise."""
+    from recsys_tpu_torch.data import loader
+
+    stop = threading.Event()
+    errors, staged = [], [0]
+    # as device_prefetch does: the thread sets the device by its index
+    device = torch.device("cuda", torch.cuda.current_device())
+
+    def stage():
+        try:
+            torch.cuda.set_device(device)
+            stager = loader._CudaStager(device,
+                                        torch.cuda.current_stream(device), 2)
+            k = 0
+            while not stop.is_set():
+                n = 1024 * (1 + k % 17)        # a new shape every batch
+                stager({"ids": np.full((n, 39), k, np.int32),
+                        "dense": np.ones((n, 13), np.float32)})
+                k += 1
+                staged[0] = k
+        except BaseException as e:  # noqa: BLE001 - asserted below
+            errors.append(e)
+
+    model, ccfg = _graph_model("deepfm", "split")
+    widths = [512, 512, 448, 448, 384, 384, 320, 320]
+    batches = [fast.stage_dataset(synthetic_criteo(b, ccfg, start_row=600 * i),
+                                  cuda_device) for i, b in enumerate(widths)]
+    ts_e, l_e = _fed_steps(model, batches, cuda_device, graphed=False)
+    thread = threading.Thread(target=stage, daemon=True)
+    thread.start()
+    try:
+        deadline = time.monotonic() + 60
+        while staged[0] < 4 and not errors and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert staged[0] >= 4, errors
+        start = staged[0]
+        ts_g, l_g = _fed_steps(model, batches, cuda_device, graphed=True)
+        torch.cuda.synchronize()
+        during = staged[0] - start
+    finally:
+        stop.set()
+        thread.join(timeout=30)
+    assert not thread.is_alive()
+    assert not errors, errors
+    assert during > 0                  # the stager ran beside the captures
+    assert all(torch.equal(a, b) for a, b in zip(l_e, l_g, strict=True))
+    _assert_bitwise(ts_e, ts_g)

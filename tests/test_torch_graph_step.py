@@ -263,3 +263,43 @@ def test_profile_step_times_the_graphed_path_by_default():
         ("eager", "graphed"), 3)
     with pytest.raises(SystemExit, match="exclude"):
         profile_step.parse_modes(["--eager", "--pairs=2"])
+
+
+def test_graphed_eval_at_a_new_width_captures_anew(stand_in_graphs):
+    """A graphed eval call at a batch width other than the captured one
+    captures again: it gives the eager call's metric state exactly (a
+    width-1 call after a width-64 call counts 2 examples, not 128) and a
+    width-32 call runs where replaying the width-64 graph raises."""
+    model = _model("deepfm", "split", 0.0)
+    ts, _ = TS.create_train_state(model, 3, 1e-3, "cpu")
+    data = fast.stage_dataset(_data(256), "cpu")
+    graphed = fast.make_scanned_eval(model, graphed=True)
+    eager = fast.make_scanned_eval(model, graphed=False)
+    for b in (64, 1, 32):
+        idx = np.arange(2 * b).reshape(2, b)
+        got = graphed(ts.params, ts.model_state, data, idx,
+                      M.init_binary_metrics())
+        want = eager(ts.params, ts.model_state, data, idx,
+                     M.init_binary_metrics())
+        assert float(got.count) == 2 * b
+        for g, w in zip(got, want, strict=True):
+            assert torch.equal(g, w)
+    assert stand_in_graphs == ["make_scanned_eval"] * 3
+
+
+def test_graphed_train_call_at_a_new_width_captures_anew(stand_in_graphs):
+    model = _model("deepfm", "split", 0.0)
+    data = fast.stage_dataset(_data(256), "cpu")
+    runs = []
+    for graphed in (False, True):
+        ts, tx = TS.create_train_state(model, 3, 1e-2, "cpu")
+        steps = fast.make_scanned_train_step(model, tx, graphed=graphed)
+        losses = []
+        for b in (64, 1, 32):
+            ts, loss = steps(ts, data, np.arange(2 * b).reshape(2, b) + b)
+            losses.append(loss)
+        runs.append((losses, _state_leaves(ts)))
+    (l_e, p_e), (l_g, p_g) = runs
+    assert all(torch.equal(a, b) for a, b in zip(l_e, l_g, strict=True))
+    assert all(torch.equal(a, b) for a, b in zip(p_e, p_g, strict=True))
+    assert stand_in_graphs == ["make_scanned_train_step"] * 3
