@@ -56,15 +56,31 @@ without the package beside it. On a card it
      the plain version there and at a ragged length, timed as a host loop
      and as device time in a CUDA graph beside ``torch.mul(x, 2.0)``;
 3. serving: full-width xDeepFM, DCN and DIN with seeded random weights,
-   exported, served over REST from a thread (xDeepFM and DCN at batches 1,
-   200 and 4096, DIN at 1, 200 and 1024 with histories padded to 32;
-   JSON, NPZ1, RAW1), every answer within 1e-4 of the CPU servable, each
-   xDeepFM request launching the CIN forward 3 times and the row gather
-   twice, each DCN request the row gather twice, each DIN request the row
-   gather 5 times (its item bias too), and none the segment sum; a request
-   with an id out of range gets a 400 and the server keeps answering; then
-   ``train_ctr serve`` and ``train_din serve`` (``--device=cuda``) from the command
-   line each answer one request;
+   exported, each loaded graphed (the default on the card) and eagerly
+   (``graphed=False``): ``warmup`` must capture one CUDA graph per batch
+   bucket (1, 8, 64, 256, 1024, 4096), and each request's graphed answer
+   must be bitwise the eager one at the same padded shape (xDeepFM and DCN
+   at batches 1, 200 and 4096, DIN at 1, 200 and 1024 with histories
+   padded to 32) and within 1e-4 of the CPU servable; then, one request at
+   a time, served over REST from a thread (JSON, NPZ1, RAW1) and over the
+   socket front end (RAW1), every answer within 1e-4 of the CPU servable,
+   each xDeepFM request launching the CIN forward 3 times and the row
+   gather twice, each DCN request the row gather twice, each DIN request
+   the row gather 5 times (its item bias too), and none the segment sum,
+   under replay; a request with an id out of range gets a 400 and an error
+   frame, launches nothing, and both fronts keep answering; the in-process
+   predict's p50 and p99, graphed against eager, in 3 alternating pairs,
+   and at xDeepFM batch 4096 each mode's host launch calls, device busy
+   time and idle share a predict (``torch.profiler``); the NumPy engine on
+   the host (xDeepFM, DCN) within ``rtol 2e-4, atol 2e-6`` of the CPU
+   servable, its p50 at batches 1 and 200; a race of 8 REST client
+   threads, 50 requests each of mixed batches (1 to 1,024 rows and some
+   of 3,000, so that coalesced groups pass 4,096 rows and capture while
+   serving), every answer within 1e-4 of its own CPU answer; then
+   ``train_ctr serve`` and ``train_din serve`` (``--device=cuda``) from
+   the command line each answer over REST and the socket (and gRPC where
+   ``grpcio`` is installed; where it is not, the command must say that it
+   does not serve gRPC);
 4. training, full width at batch 16384 (xDeepFM at 4096) through
    ``fast.make_scanned_train_step_devgen`` in calls of K = 50 on a
    device-resident synthetic dataset, each step one replay of a captured
@@ -112,8 +128,11 @@ without the package beside it. On a card it
 7. DIN's host-fed step graphed against eager the same way, at batch 1024;
 8. ``train_ctr train`` (DeepFM, and DCN on the fused engine) and
    ``train_din train`` (``--device=cuda``) from the command line each exit
-   0, print an eval AUC and leave a checkpoint; then ``train_din export``
-   writes a servable that loads on the card;
+   0, print an eval AUC and leave a checkpoint, ``best/`` (the step of the
+   highest eval AUC), ``scalars.jsonl`` with the JAX loops' tags at their
+   steps and one TensorBoard event file with a record (its crc32c checked)
+   for each scalar line; then ``train_din export`` writes a servable that
+   loads on the card;
 9. a 262,144-line Criteo-format TSV (about 20% of numeric and 10% of
    categorical fields missing): the native host library must have built,
    its parse must equal the pure-Python path on the first 5,000 rows, and
@@ -156,6 +175,7 @@ STEP_TOL = 1e-4
 GRAPH_TOL = 0.0          # graphed against eager: bitwise
 GRAPH_PAIRS = 3
 DIN_BATCHES = (1, 200, 1024)
+RACE_BIG = 3000          # rows of the race's large requests
 DIN_STEPS = 300
 STREAM_SHARDS = 16
 STREAM_ROWS = 16 * 65_536      # 1,048,576 rows, about 220 MB of npz
@@ -764,87 +784,298 @@ def randomize(params, state, seed: int):
     return tree.fill_like([params, state], leaves)
 
 
+def _latency(fn, n: int) -> list[float]:
+    """Wall ms of ``n`` calls of ``fn`` (each ends on the host)."""
+    lat = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return lat
+
+
+def _p50_p99(lat: list[float]) -> tuple[float, float]:
+    return float(np.percentile(lat, 50)), float(np.percentile(lat, 99))
+
+
+def _predict_pairs(sv, eager, requests: dict) -> dict:
+    """In-process predict ms, graphed (``sv``) against eager, in
+    GRAPH_PAIRS alternating pairs of LATENCY_REQUESTS calls a batch →
+    {batch: {mode: [(p50, p99) of each pair]}}."""
+    out = {b: {"graphed": [], "eager": []} for b in requests}
+    for pair in range(GRAPH_PAIRS):
+        for mode in (("eager", "graphed") if pair % 2 == 0
+                     else ("graphed", "eager")):
+            which = sv if mode == "graphed" else eager
+            for b, feats in requests.items():
+                out[b][mode].append(_p50_p99(_latency(
+                    lambda: which.predict(feats), LATENCY_REQUESTS)))
+    return out
+
+
+def _profile_predicts(sv, feats, calls: int = 10) -> dict:
+    """``calls`` predicts under ``torch.profiler`` → the trace's numbers a
+    predict (`profile_step.trace_numbers`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from recsys_tpu_torch.tools.profile_step import trace_numbers
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            sv.predict(feats)
+        torch.cuda.synchronize()
+    return trace_numbers(prof, calls)
+
+
 def serving_phase(export_dir: str, requests: dict, bad: dict, name: str,
-                  counters: dict, per_request: dict) -> dict:
-    """REST serving on the card against the CPU servable, one request at a
-    time: each batch of ``requests`` ({batch: features}) in JSON, NPZ1 and
-    RAW1, every request adding ``per_request[k]`` launches to counter
-    ``k``; then ``bad`` (an id out of range) must get a 400, launch
-    nothing, and the server must keep answering. → p50 ms per batch,
-    launches per counter over the served requests, request count."""
+                  counters: dict, per_request: dict,
+                  profile_batch: int | None = None) -> dict:
+    """Serving on the card against the CPU servable. `Servable.warmup`
+    captures one CUDA graph a bucket; each request's graphed answer is
+    bitwise the eager answer (``graphed=False``) at the same padded shape.
+    Then, one request at a time, REST (JSON, NPZ1, RAW1) and the socket
+    front end (RAW1), each request adding ``per_request[k]`` launches to
+    counter ``k`` under replay; ``bad`` (an id out of range) gets a 400 and
+    an error frame, launches nothing, and both fronts keep answering;
+    then the in-process predict ms, graphed against eager, in alternating
+    pairs, and (at ``profile_batch``) the host's launch calls and the
+    device's busy ms a predict under ``torch.profiler``. → p50 ms per
+    batch of each front, launches per counter over the served requests,
+    request count, predict timings and profiles."""
     from recsys_tpu_torch.serve import client
     from recsys_tpu_torch.serve.export import Servable
+    from recsys_tpu_torch.serve.fastsock import SocketClient, SocketServer
     from recsys_tpu_torch.serve.server import make_rest_server
 
     sv = Servable(export_dir, device="cuda")
+    eager = Servable(export_dir, device="cuda", graphed=False)
     sv_cpu = Servable(export_dir, device="cpu")
+    _check(sv.graphed and not eager.graphed, f"{name}: graphed by default")
+    sv.warmup()
+    eager.warmup()
+    _check(sv.captures == len(sv.buckets),
+           f"{name}: warmup took {sv.captures} captures for buckets "
+           f"{sv.buckets}")
+    refs = {b: sv_cpu.predict(f) for b, f in requests.items()}
+    for b, feats in requests.items():
+        got, want = sv.predict(feats), eager.predict(feats)
+        _check(np.array_equal(got, want), f"{name} batch {b}: graphed != "
+               f"eager by {float(np.abs(got - want).max())}")
+        err = float(np.abs(got - refs[b]).max())
+        _check(err <= TOL, f"{name} batch {b} graphed: |card - cpu| = {err}")
+    _check(sv.captures == len(sv.buckets),
+           f"{name}: a request after the warm-up captured")
+    print(f"{name}: warmup captured {sv.captures} bucket graphs "
+          f"{sv.buckets}; each batch of {list(requests)} graphed bitwise "
+          f"equal to eager at its padded shape, within {TOL} of the CPU",
+          flush=True)
     srv, batcher = make_rest_server(sv, 0)
     port = srv.server_address[1]
     thread = threading.Thread(target=srv.serve_forever, daemon=True)
     thread.start()
-    p50 = {}
+    sock = SocketServer(sv, 0, batcher)
+    sock.start()
+    conn = SocketClient(sock.port)
+    p50, sock_p50 = {}, {}
     try:
-        refs = {b: sv_cpu.predict(f) for b, f in requests.items()}
         for feats in requests.values():                    # warm up
             client.rest_send(port, client.prepare_body(feats, "raw"))
+            conn.send(client.prepare_body(feats, "raw"))
         _zero(counters)                  # the serving path starts here
         n_req = 0
+
+        def served(b, front, fmt, send):
+            nonlocal n_req
+            before = _read(counters)
+            t0 = time.perf_counter()
+            got = send()
+            dt = (time.perf_counter() - t0) * 1e3
+            n_req += 1
+            after = _read(counters)
+            delta = {k: after[k] - before[k] for k in counters}
+            _check(delta == per_request,
+                   f"{name} batch {b} {front} {fmt}: kernel launches "
+                   f"{delta}, want {per_request}")
+            _check(got.shape == (b,) and bool(np.isfinite(got).all()),
+                   f"{name} batch {b} {front} {fmt}: answer shape "
+                   f"{got.shape} or values")
+            err = float(np.abs(got - refs[b]).max())
+            _check(err <= TOL, f"{name} batch {b} {front} {fmt}: |card - "
+                               f"cpu| = {err}")
+            return dt
+
         for b, feats in requests.items():
-            ref = refs[b]
             bodies = {fmt: client.prepare_body(feats, fmt)
                       for fmt in ("json", "npz", "raw")}
-            lat = []
-            for fmt in ["json", "npz"] + ["raw"] * LATENCY_REQUESTS:
-                before = _read(counters)
-                t0 = time.perf_counter()
-                got = client.rest_send(port, bodies[fmt], name)
-                dt = time.perf_counter() - t0
-                n_req += 1
-                if fmt == "raw":
-                    lat.append(dt)
-                after = _read(counters)
-                delta = {k: after[k] - before[k] for k in counters}
-                _check(delta == per_request,
-                       f"{name} batch {b} {fmt}: kernel launches {delta}, "
-                       f"want {per_request}")
-                _check(got.shape == (b,) and bool(np.isfinite(got).all()),
-                       f"{name} batch {b} {fmt}: answer shape {got.shape} "
-                       "or values")
-                err = float(np.abs(got - ref).max())
-                _check(err <= TOL, f"{name} batch {b} {fmt}: |card - cpu| "
-                                   f"= {err}")
-            p50[b] = float(np.percentile(lat, 50) * 1e3)
-            print(f"{name} served batch {b}: RAW1/JSON/NPZ1 within {TOL} of "
-                  f"the CPU run; probs mean {ref.mean():.4f} std "
-                  f"{ref.std():.4f}; p50 {p50[b]:.3f} ms p99 "
-                  f"{np.percentile(lat, 99) * 1e3:.3f} ms over {len(lat)} "
-                  "RAW1 requests", flush=True)
-            _check(b == 1 or float(ref.std()) > 1e-3,
+            lat = [served(b, "REST", fmt,
+                          lambda fmt=fmt: client.rest_send(port, bodies[fmt],
+                                                           name))
+                   for fmt in ["json", "npz"] + ["raw"] * LATENCY_REQUESTS]
+            lat = lat[2:]
+            slat = [served(b, "socket", "raw",
+                           lambda: conn.send(bodies["raw"]))
+                    for _ in range(LATENCY_REQUESTS)]
+            p50[b], sock_p50[b] = _p50_p99(lat)[0], _p50_p99(slat)[0]
+            print(f"{name} served batch {b}: REST RAW1/JSON/NPZ1 and socket "
+                  f"RAW1 within {TOL} of the CPU run; probs mean "
+                  f"{refs[b].mean():.4f} std {refs[b].std():.4f}; REST p50 "
+                  f"{p50[b]:.3f} ms p99 {_p50_p99(lat)[1]:.3f} ms, socket "
+                  f"p50 {sock_p50[b]:.3f} ms p99 {_p50_p99(slat)[1]:.3f} ms "
+                  f"over {len(lat)} RAW1 requests each", flush=True)
+            _check(b == 1 or float(refs[b].std()) > 1e-3,
                    f"{name} batch {b}: probabilities do not vary; the check "
                    "is void")
         launches = _read(counters)       # the serving path ends here
         _check(all(launches[k] == per_request[k] * n_req for k in counters),
                f"{name}: {launches} kernel launches for {n_req} requests")
+        body = client.prepare_body(bad, "raw")
         try:
-            client.rest_send(port, client.prepare_body(bad, "raw"), name)
+            client.rest_send(port, body, name)
             _check(False, f"{name}: a request with an id out of range was "
                           "answered")
         except urllib.error.HTTPError as e:
             _check(e.code == 400, f"{name}: bad request got HTTP {e.code}")
+        try:
+            conn.send(body)
+            _check(False, f"{name}: the socket answered an id out of range")
+        except RuntimeError as e:
+            _check("ValueError" in str(e), f"{name}: socket error {e}")
         _check(_read(counters) == launches,
                f"{name}: the rejected request launched a kernel")
         b, feats = next(iter(requests.items()))
-        got = client.rest_send(port, client.prepare_body(feats, "json"), name)
-        _check(float(np.abs(got - refs[b]).max()) <= TOL,
-               f"{name}: the server did not recover from a bad request")
-        print(f"{name}: an id out of range got HTTP 400 and no launch; the "
-              "server answered the next request", flush=True)
+        for got in (client.rest_send(port, client.prepare_body(feats, "json"),
+                                     name),
+                    conn.send(client.prepare_body(feats, "npz"))):
+            _check(float(np.abs(got - refs[b]).max()) <= TOL,
+                   f"{name}: a front did not recover from a bad request")
+        print(f"{name}: an id out of range got HTTP 400, an error frame and "
+              "no launch; both fronts answered the next request", flush=True)
+    finally:
+        conn.close()
+        sock.shutdown()
+        srv.shutdown()
+        srv.server_close()
+        batcher.stop()
+        thread.join(10)
+    timing = _predict_pairs(sv, eager, requests)
+
+    def pairs(ms):
+        return [(round(x, 4), round(y, 4)) for x, y in ms]
+
+    print(f"{name} in-process predict ms (p50, p99) graphed vs eager, "
+          f"{GRAPH_PAIRS} alternating pairs: " + "; ".join(
+              f"batch {b}: graphed {pairs(t['graphed'])} eager "
+              f"{pairs(t['eager'])}" for b, t in timing.items()), flush=True)
+    profiles = {}
+    if profile_batch is not None:
+        for mode, which in (("graphed", sv), ("eager", eager)):
+            prof = _profile_predicts(which, requests[profile_batch])
+            ms = float(np.median([x for x, _ in
+                                  timing[profile_batch][mode]]))
+            prof["predict_ms"] = ms
+            prof["device_idle_share"] = 1.0 - prof[
+                "device_busy_ms_per_step"] / ms
+            profiles[mode] = prof
+            print(f"{name} batch {profile_batch} {mode} predict profile: "
+                  f"{prof['launch_calls_per_step']:.1f} kernel launch calls "
+                  f"and {prof['graph_launches_per_step']:.1f} graph launches "
+                  f"a predict, {prof['device_ops_per_step']:.1f} device ops, "
+                  f"busy {prof['device_busy_ms_per_step']:.4f} ms of the "
+                  f"p50 {ms:.4f} ms: idle share "
+                  f"{prof['device_idle_share']:.3f}; top "
+                  f"{prof['top'][:3]}", flush=True)
+    return {"launches": launches, "p50_ms": p50, "socket_p50_ms": sock_p50,
+            "requests": n_req, "predict_ms": timing, "profiles": profiles}
+
+
+def race_phase(export_dir: str, pool: list) -> dict:
+    """8 client threads, 50 REST requests each, drawn from ``pool``
+    (mixed batches, a few of 3,000 rows, so that coalesced groups pass the
+    largest bucket and capture while serving): every answer within TOL of
+    its own request's CPU answer. → the captures the run took and the
+    largest coalesced group."""
+    from recsys_tpu_torch.serve import client
+    from recsys_tpu_torch.serve.export import Servable
+    from recsys_tpu_torch.serve.server import make_rest_server
+
+    sv = Servable(export_dir, device="cuda")
+    sv.warmup()
+    warm = sv.captures
+    cpu = Servable(export_dir, device="cpu")
+    refs = [cpu.predict(f) for f in pool]
+    bodies = [client.prepare_body(f, "raw") for f in pool]
+    srv, batcher = make_rest_server(sv, 0)
+    port = srv.server_address[1]
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    errors, worst = [], [0.0]
+    start = threading.Barrier(8)
+
+    def client_thread(t):
+        try:
+            rng = np.random.default_rng(t)
+            start.wait(60)
+            for _ in range(50):
+                i = int(rng.integers(len(pool)))
+                got = client.rest_send(port, bodies[i])
+                err = float(np.abs(got - refs[i]).max())
+                worst[0] = max(worst[0], err)
+                if got.shape != refs[i].shape or err > TOL:
+                    errors.append(f"request {i}: shape {got.shape}, "
+                                  f"|card - cpu| = {err}")
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(f"{type(e).__name__}: {e}")
+
+    t0 = time.perf_counter()
+    try:
+        threads = [threading.Thread(target=client_thread, args=(t,))
+                   for t in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        _check(not any(t.is_alive() for t in threads), "race: a client hung")
     finally:
         srv.shutdown()
         srv.server_close()
         batcher.stop()
         thread.join(10)
-    return {"launches": launches, "p50_ms": p50, "requests": n_req}
+    secs = time.perf_counter() - t0
+    _check(not errors, f"race: {len(errors)} wrong answers, first "
+                       f"{errors[:3]}")
+    out = {"captures": sv.captures - warm,
+           "largest_group": batcher.largest_group, "seconds": secs,
+           "max_abs_err": worst[0]}
+    print(f"race: 8 threads x 50 REST requests of mixed batches, every "
+          f"answer within {TOL} of its CPU answer (max {worst[0]:.2e}) in "
+          f"{secs:.1f} s; {out['captures']} captures while serving, largest "
+          f"coalesced group {out['largest_group']} rows", flush=True)
+    return out
+
+
+def numpy_engine_phase(export_dir: str, name: str, requests: dict) -> dict:
+    """The NumPy engine on the card's host against the CPU servable
+    (``rtol 2e-4, atol 2e-6``) at every batch; → its p50 ms at batches 1
+    and 200."""
+    from recsys_tpu_torch.serve.export import Servable
+
+    npsv = Servable(export_dir, device="cpu", engine="numpy")
+    cpu = Servable(export_dir, device="cpu")
+    for b, feats in requests.items():
+        got, want = npsv.predict(feats), cpu.predict(feats)
+        _check(got.shape == (b,) and bool(np.allclose(got, want, rtol=2e-4,
+                                                      atol=2e-6)),
+               f"{name} numpy engine batch {b}: |numpy - cpu| = "
+               f"{float(np.abs(got - want).max())}")
+    p50 = {b: _p50_p99(_latency(lambda f=requests[b]: npsv.predict(f),
+                                LATENCY_REQUESTS * 5))[0]
+           for b in (1, 200) if b in requests}
+    print(f"{name} numpy engine: within rtol 2e-4 atol 2e-6 of the CPU "
+          f"servable at batches {list(requests)}; p50 "
+          + ", ".join(f"batch {b}: {ms:.4f} ms" for b, ms in p50.items()),
+          flush=True)
+    return p50
 
 
 def _run_cli(module: str, args: list[str], timeout: float, until=None):
@@ -901,26 +1132,95 @@ def _stop(proc) -> None:
 
 def serve_cli_phase(module: str, export_dir: str, feats: dict) -> None:
     """The user's entry point: ``<module> serve --device=cuda`` from the
-    command line answers one request as the CPU servable does."""
+    command line answers over REST and the socket as the CPU servable
+    does; gRPC too where ``grpcio`` is installed, and where it is not, the
+    command says that it does not serve gRPC."""
+    import importlib.util
+
     from recsys_tpu_torch.serve import client
     from recsys_tpu_torch.serve.export import Servable
+    from recsys_tpu_torch.serve.fastsock import SocketClient
 
-    def port_of(line):
-        m = re.search(r"REST:(\d+)", line)
-        return int(m.group(1)) if m else None
+    said = []
 
-    proc, port = _run_cli(module, ["serve", f"--export_dir={export_dir}",
-                                   "--device=cuda", "--port=0"], 300,
-                          until=port_of)
+    def ports_of(line):
+        said.append(line)
+        m = re.search(r"REST:(\d+) gRPC:(\d+|none) socket:(\d+)", line)
+        return m.groups() if m else None
+
+    proc, (rest, grpc_port, sock) = _run_cli(
+        module, ["serve", f"--export_dir={export_dir}", "--device=cuda",
+                 "--port=0"], 300, until=ports_of)
     try:
-        got = client.rest_send(port, client.prepare_body(feats, "raw"))
+        body = client.prepare_body(feats, "raw")
         ref = Servable(export_dir, device="cpu").predict(feats)
-        err = float(np.abs(got - ref).max())
-        _check(err <= TOL, f"{module} serve: |card - cpu| = {err}")
-        print(f"{module} serve on port {port}: batch {len(ref)} within {TOL} "
-              "of the CPU run", flush=True)
+        with SocketClient(int(sock)) as conn:
+            answers = {"REST": client.rest_send(int(rest), body),
+                       "socket": conn.send(body)}
+        if importlib.util.find_spec("grpc") is None:
+            _check(grpc_port == "none" and any(
+                "gRPC is not served" in line for line in said),
+                f"{module} serve: no grpcio here, yet gRPC:{grpc_port}")
+        else:
+            answers["gRPC"] = client.grpc_send(
+                client.make_grpc_stub(int(grpc_port)), body)
+        for front, got in answers.items():
+            err = float(np.abs(got - ref).max())
+            _check(err <= TOL, f"{module} serve {front}: |card - cpu| = "
+                               f"{err}")
+        print(f"{module} serve: REST on port {rest}, socket on {sock}, gRPC "
+              f"{grpc_port}: batch {len(ref)} within {TOL} of the CPU run "
+              f"over {sorted(answers)}", flush=True)
     finally:
         _stop(proc)
+
+
+def _event_records(path: str) -> int:
+    """The records of a TensorBoard event file, each one's length and
+    payload checked against its masked crc32c."""
+    import struct
+
+    from recsys_tpu_torch.train.tb_events import _masked_crc
+
+    n = 0
+    with open(path, "rb") as f:
+        while True:
+            head = f.read(8)
+            if not head:
+                return n
+            (crc,) = struct.unpack("<I", f.read(4))
+            _check(crc == _masked_crc(head), f"{path}: bad length crc")
+            payload = f.read(struct.unpack("<Q", head)[0])
+            (crc,) = struct.unpack("<I", f.read(4))
+            _check(crc == _masked_crc(payload), f"{path}: bad payload crc")
+            n += 1
+
+
+def check_run_outputs(model_dir: str, eval_steps: list[int],
+                      tags: list[tuple[int, set]]) -> None:
+    """A training run's outputs: ``best/`` (the step of the highest eval
+    AUC), ``scalars.jsonl`` whose lines hold ``tags`` ((step, tag set) a
+    line), and one event file with a record for each line."""
+    import json as json_
+
+    from recsys_tpu_torch.train.summaries import read_scalars
+
+    recs = read_scalars(model_dir)
+    got = [(r["step"], set(r) - {"step", "wall_time"}) for r in recs]
+    _check(got == tags, f"{model_dir}: scalars {got}, want {tags}")
+    aucs = {r["step"]: r["eval_auc"] for r in recs if "eval_auc" in r}
+    _check(sorted(aucs) == eval_steps, f"eval AUC at {sorted(aucs)}")
+    with open(os.path.join(model_dir, "best", "meta.json")) as f:
+        best = json_.load(f)
+    _check(best["metric"] == max(aucs.values())
+           and aucs[best["step"]] == best["metric"],
+           f"best/ is step {best['step']} at {best['metric']}, evals {aucs}")
+    events = [n for n in os.listdir(model_dir)
+              if n.startswith("events.out.tfevents.")]
+    _check(len(events) == 1, f"event files {events}")
+    records = _event_records(os.path.join(model_dir, events[0]))
+    _check(records == 1 + len(recs), f"{records} event records for "
+                                     f"{len(recs)} scalar lines")
 
 
 def _cin_grads(name, ccfg, mcfg, data, batch_size, dev) -> list[float]:
@@ -1213,8 +1513,14 @@ def train_cli_phase(ccfg, model_flags=(("deepfm", "split"), ("dcn", "fused"))
                                   "AUC")
             ckpts = sorted(os.listdir(model_dir))
             _check("step_100" in ckpts, f"no checkpoint step_100 in {ckpts}")
+            every = {"loss", "examples_per_sec", "eval_auc", "eval_logloss"}
+            check_run_outputs(model_dir, [50, 100],
+                              [(50, every), (100, every)])
             print(f"command-line training {name} ({engine} engine): eval AUC "
-                  f"{m.group(1)}, checkpoints {ckpts}", flush=True)
+                  f"{m.group(1)}, model_dir {ckpts}: best/ is the best eval "
+                  "AUC's step, scalars.jsonl and the event file hold loss, "
+                  "examples_per_sec, eval_auc and eval_logloss at steps 50 "
+                  "and 100", flush=True)
 
 
 def din_data():
@@ -1360,6 +1666,10 @@ def din_cli_phase() -> None:
         _check(m is not None, "train_din train printed no eval AUC")
         ckpts = sorted(os.listdir(f"{tmp}/model"))
         _check("step_100" in ckpts, f"no checkpoint step_100 in {ckpts}")
+        log, evals = {"loss", "examples_per_sec"}, {"eval_auc",
+                                                     "eval_logloss"}
+        check_run_outputs(f"{tmp}/model", [50, 100],
+                          [(50, log), (50, evals), (100, log), (100, evals)])
         code, _ = _run_cli("train_din", ["export",
                                          f"--export_dir={tmp}/export"]
                            + common, 600)
@@ -1630,6 +1940,10 @@ def tsv_phase(ccfg) -> dict:
                               "AUC")
         ckpts = sorted(os.listdir(f"{tmp}/model"))
         _check("step_100" in ckpts, f"no checkpoint step_100 in {ckpts}")
+        log, evals = {"loss", "examples_per_sec"}, {"eval_auc",
+                                                     "eval_logloss"}
+        check_run_outputs(f"{tmp}/model", [50, 100],
+                          [(50, log), (50, evals), (100, log), (100, evals)])
         code, out = _run_cli("train_ctr", ["eval"] + flags, 600)
         _check(code == 0, f"train_ctr eval exited with {code}")
         e = re.search(r"'auc': ([0-9.]+).*'count': ([0-9.]+)", out)
@@ -1726,8 +2040,17 @@ def main() -> None:
             served[name] = serving_phase(
                 export_dir, reqs, bad, name,
                 {"cin_fwd": cin_kernel, "row_gather": rg, "segment_sum": ss},
-                per_request)
+                per_request, profile_batch=4096 if name == "xdeepfm" else None)
+            served[name]["numpy_p50_ms"] = numpy_engine_phase(export_dir,
+                                                              name, reqs)
             if name == "xdeepfm":
+                rng = np.random.default_rng(5)
+                sizes = [int(x) for x in rng.integers(1, 1025, 13)]
+                pool = []
+                for i, b in enumerate(sizes + [RACE_BIG] * 3):
+                    d = synthetic_criteo(b, ccfg, start_row=50_000 + 4000 * i)
+                    pool.append({"ids": d["ids"], "dense": d["dense"]})
+                race = race_phase(export_dir, pool)
                 serve_cli_phase("train_ctr", export_dir, reqs[200])
 
     din_train, din_eval = din_data()
@@ -1748,11 +2071,28 @@ def main() -> None:
             {"row_gather": rg, "segment_sum": ss},
             {"row_gather": 5, "segment_sum": 0})
         serve_cli_phase("train_din", export_dir, reqs[200])
-    print("served p50 latency (REST, RAW1, one request at a time): "
-          + "; ".join(f"{name} " + ", ".join(
-              f"batch {b}: {ms:.3f} ms" for b, ms in sv["p50_ms"].items())
+    def median_p50(sv, b, mode):
+        return float(np.median([x for x, _ in sv["predict_ms"][b][mode]]))
+
+    print("served p50 latency (RAW1, one request at a time), REST / socket "
+          "/ in-process graphed / in-process eager (median of the pairs' "
+          "p50s): " + "; ".join(f"{name} " + ", ".join(
+              f"batch {b}: {ms:.3f} / {sv['socket_p50_ms'][b]:.3f} / "
+              f"{median_p50(sv, b, 'graphed'):.3f} / "
+              f"{median_p50(sv, b, 'eager'):.3f} ms"
+              for b, ms in sv["p50_ms"].items())
               for name, sv in served.items())
-          + f" [{card}]", flush=True)
+          + "; numpy engine p50: " + "; ".join(
+              f"{name} " + ", ".join(f"batch {b}: {ms:.4f} ms"
+                                     for b, ms in sv["numpy_p50_ms"].items())
+              for name, sv in served.items() if "numpy_p50_ms" in sv)
+          + f"; race: {race['captures']} captures while serving, largest "
+          f"group {race['largest_group']} rows [{card}]", flush=True)
+    print(json.dumps({"serving": {
+        name: {k: sv[k] for k in ("p50_ms", "socket_p50_ms", "predict_ms",
+                                  "profiles", "numpy_p50_ms") if k in sv}
+        for name, sv in served.items()}, "race": race, "card": card},
+        default=str), flush=True)
 
     def zoo(name, batch_size=16384, **kw):
         cfg = kw.pop("cfg", ModelConfig(name=name))
@@ -1854,6 +2194,7 @@ def main() -> None:
          "source": "recsys_tpu_torch/csrc/row_gather.cu",
          "replaces": "scratch/rowdma_kernel.py:72",
          "note": "launches: DIN training (5 per step plus eval); "
+                 "serving_launches: graphed serving, per model; "
                  f"fused-engine DeepFM training {fused['row_gather']} (one "
                  "per step); streaming DeepFM "
                  f"{stream['counts']['row_gather']} (2 per step plus eval); "
@@ -1861,6 +2202,8 @@ def main() -> None:
                  "at B=1024 plus Criteo big table at B=16384; the plain "
                  "version is the library call, index_select",
          "launches": din["counts"]["row_gather"],
+         "serving_launches": {name: sv["launches"]["row_gather"]
+                              for name, sv in served.items()},
          **{k: gat[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                 "bound_by", "library_ms", "shapes")}},
     ] + [

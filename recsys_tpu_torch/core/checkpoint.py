@@ -8,6 +8,9 @@ A checkpoint is a directory ``step_N/`` holding
   ``manifest`` lists ``[path, leaf key]`` pairs and ``path`` is the leaf's
   jax key string, e.g. ``[0]['cin'][0]['w']``.
 
+``best/`` is a copy of the step whose ``metric`` was the highest, in the
+same format, so each package restores the other's ``best/``.
+
 The JAX package's ``restore`` matches leaves to its template BY POSITION,
 so `flatten` emits them in jax's flatten order: dict keys sorted, lists and
 tuples in index order. Like jax, it drops empty containers, which hold no
@@ -96,12 +99,22 @@ def unflatten(pairs) -> list | dict:
 
 
 class CheckpointManager:
-    """Step-indexed checkpoints with keep-last-k retention."""
+    """Step-indexed checkpoints with keep-last-k and keep-best retention.
+
+    ``save(..., metric=)`` copies the step to ``best/`` whenever the metric
+    improves (higher is better), as the JAX package does; the best metric
+    is read back from ``best/meta.json`` when a manager opens a directory,
+    and retention never deletes ``best/``."""
 
     def __init__(self, directory: str, keep_max: int = 5):
         self.directory = directory
         self.keep_max = keep_max
         os.makedirs(directory, exist_ok=True)
+        self._best_metric: float | None = None
+        best_meta = os.path.join(directory, "best", "meta.json")
+        if os.path.exists(best_meta):
+            with open(best_meta) as f:
+                self._best_metric = json.load(f).get("metric")
 
     def _step_dirs(self) -> list[tuple[int, str]]:
         out = []
@@ -112,12 +125,15 @@ class CheckpointManager:
                             os.path.join(self.directory, name)))
         return sorted(out)
 
-    def save(self, step: int, tree, metric: float | None = None) -> str:
+    def save(self, step: int, tree, metric: float | None = None,
+             extra: dict | None = None) -> str:
         """Write ``tree`` (leaves: numpy arrays) as ``step_<step>``, with
-        ``metric`` (e.g. the eval AUC) in its meta.
+        ``metric`` (e.g. the eval AUC) and ``extra`` in its meta; refresh
+        ``best/`` when ``metric`` beats the best so far.
 
-        Crash-atomic: written under ``step_N.tmp`` and published with one
-        rename, so a reader never sees a partial checkpoint."""
+        Crash-atomic: each directory is written under a ``.tmp`` name and
+        published with one rename, so a reader never sees a partial
+        checkpoint."""
         path = os.path.join(self.directory, f"step_{step}")
         tmp = path + ".tmp"
         if os.path.exists(tmp):
@@ -130,10 +146,20 @@ class CheckpointManager:
         np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
         with open(os.path.join(tmp, "meta.json"), "w") as f:
             json.dump({"step": step, "metric": metric, "manifest": manifest,
-                       "extra": {}}, f)
+                       "extra": extra or {}}, f)
         if os.path.exists(path):
             shutil.rmtree(path)
         os.rename(tmp, path)
+        if metric is not None and (self._best_metric is None
+                                   or metric > self._best_metric):
+            self._best_metric = metric
+            best = os.path.join(self.directory, "best")
+            if os.path.exists(best + ".tmp"):
+                shutil.rmtree(best + ".tmp")
+            shutil.copytree(path, best + ".tmp")
+            if os.path.exists(best):
+                shutil.rmtree(best)
+            os.rename(best + ".tmp", best)
         dirs = self._step_dirs()
         for _, old in dirs[: max(0, len(dirs) - self.keep_max)]:
             shutil.rmtree(old)
@@ -143,22 +169,29 @@ class CheckpointManager:
         dirs = self._step_dirs()
         return dirs[-1][0] if dirs else None
 
-    def restore(self, template=None):
-        """(tree of numpy arrays, step) of the latest checkpoint, or None
-        when there is none. Without a template the tree is rebuilt from the
-        manifest's paths; with one, the leaves fill the template's structure
-        in order, and a path or shape that differs from the template's
-        raises."""
-        step = self.latest_step()
-        if step is None:
+    def restore(self, template=None, step: int | None = None,
+                best: bool = False):
+        """(tree of numpy arrays, step, extra) of ``best/`` (``best=True``),
+        of ``step_<step>``, or of the latest checkpoint; None when there is
+        none. Without a template the tree is rebuilt from the manifest's
+        paths; with one, the leaves fill the template's structure in order,
+        and a path or shape that differs from the template's raises."""
+        if best:
+            path = os.path.join(self.directory, "best")
+        else:
+            step = self.latest_step() if step is None else step
+            if step is None:
+                return None
+            path = os.path.join(self.directory, f"step_{step}")
+        if not os.path.exists(path):
             return None
-        path = os.path.join(self.directory, f"step_{step}")
         with open(os.path.join(path, "meta.json")) as f:
             meta = json.load(f)
         with np.load(os.path.join(path, "arrays.npz")) as z:
             pairs = [(p, z[key]) for p, key in meta["manifest"]]
+        extra = meta.get("extra", {})
         if template is None:
-            return unflatten(pairs), meta["step"]
+            return unflatten(pairs), meta["step"], extra
         want = flatten(template)
         if len(want) != len(pairs):
             raise ValueError(f"checkpoint has {len(pairs)} leaves, template "
@@ -168,5 +201,5 @@ class CheckpointManager:
                 raise ValueError(f"checkpoint leaf {p} {np.shape(leaf)} does "
                                  f"not match template {wp} "
                                  f"{tuple(wleaf.shape)}")
-        return tree_util.fill_like(template, [a for _, a in pairs]), \
-            meta["step"]
+        return (tree_util.fill_like(template, [a for _, a in pairs]),
+                meta["step"], extra)

@@ -135,13 +135,15 @@ def cin_layer_fwd(x0v: torch.Tensor, xkv: torch.Tensor, w: torch.Tensor,
     if n == 0:
         return y
     lib = _fwd_lib()
+    stream = _stream(x0v.device)
     with torch.cuda.device(x0v.device):
         err = lib.cin_layer_fwd(x0v.data_ptr(), xkv.data_ptr(), w.data_ptr(),
                                 b.data_ptr(), y.data_ptr(), n, f0, fk, h,
-                                _stream(x0v.device))
+                                stream)
     cuda_build.check(lib, err, "cin_layer_fwd")
     with _count_lock:
         LAUNCHES += 1
+    cuda_build.tally_launch(f"{__name__}.LAUNCHES", stream)
     return y
 
 
@@ -198,16 +200,17 @@ def cin_layer_bwd(x0v: torch.Tensor, xkv: torch.Tensor, w: torch.Tensor,
     work = torch.empty(part_floats + _wt_floats(f0, fk, h),
                        dtype=torch.float32, device=dev)
     lib = _bwd_lib()
+    stream = _stream(dev)
     with torch.cuda.device(dev):
         err = lib.cin_layer_bwd(
             x0v.data_ptr(), xkv.data_ptr(), w.data_ptr(), y.data_ptr(),
             dy.data_ptr(), dx0.data_ptr(), dxk.data_ptr(), work.data_ptr(),
             work[part_floats:].data_ptr(), dw.data_ptr(), db.data_ptr(), n,
-            f0, fk, h, groups, rows,
-            _stream(dev))
+            f0, fk, h, groups, rows, stream)
     cuda_build.check(lib, err, "cin_layer_bwd")
     with _count_lock:
         BWD_LAUNCHES += 1
+    cuda_build.tally_launch(f"{__name__}.BWD_LAUNCHES", stream)
     return dx0, dxk, dw, db
 
 

@@ -11,6 +11,7 @@ way. Nothing is built when a module is imported.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -25,6 +26,9 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+#: capturing stream handle → launches counted on it (`launch_tally`)
+_tallies: dict[int, dict[str, int]] = {}
+_tally_lock = threading.Lock()
 
 
 def source(name: str) -> str:
@@ -136,3 +140,31 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what} launch failed: error {err} "
                            f"({lib.kernel_error_string(err).decode()})")
+
+
+def tally_launch(counter: str, stream: int) -> None:
+    """Add one to ``counter`` in the open tally of ``stream`` (the CUDA
+    stream handle the launch went to), if it has one. Every kernel wrapper
+    calls it where it counts a launch."""
+    if not _tallies:
+        return
+    with _tally_lock:
+        tally = _tallies.get(stream)
+        if tally is not None:
+            tally[counter] = tally.get(counter, 0) + 1
+
+
+@contextlib.contextmanager
+def launch_tally(stream: int):
+    """{counter name: launches} that the wrappers counted on ``stream``
+    inside the block, and only those: a graph capture learns its own
+    launches (autograd's backward ones too, which another thread makes on
+    the capturing stream) while other threads launch on other streams."""
+    tally: dict[str, int] = {}
+    with _tally_lock:
+        _tallies[stream] = tally
+    try:
+        yield tally
+    finally:
+        with _tally_lock:
+            del _tallies[stream]

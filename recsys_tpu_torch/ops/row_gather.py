@@ -87,4 +87,5 @@ def row_gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     cuda_build.check(lib, err, "row_gather")
     with _count_lock:
         LAUNCHES += 1
+    cuda_build.tally_launch(f"{__name__}.LAUNCHES", stream)
     return out

@@ -133,4 +133,5 @@ def segment_sum(ids: torch.Tensor, grads: torch.Tensor,
     if n:
         with _count_lock:
             LAUNCHES += 1
+        cuda_build.tally_launch(f"{__name__}.LAUNCHES", stream)
     return out

@@ -5,8 +5,16 @@ and a checkpoint ``step_0`` holding ``(params, model_state)``, both in the
 JAX package's format and layout: a servable exported by either package
 loads in the other. ``prob = predict(features)`` is the serving signature.
 
-The port runs eagerly, so it needs no batch-size buckets and no padding:
-each request runs at its own batch size.
+As in the JAX package, a request is padded to a batch bucket
+(`DEFAULT_BUCKETS`): to the smallest bucket that holds it, or beyond the
+largest to a multiple of the largest, by repeating its last row, and the
+answer is cut back to the request's rows. On the card each padded
+signature (every feature's name, shape and type) is one CUDA graph of the
+predict step, captured once and replayed from static input buffers: one
+graph launch a request, where the eager step launches its 100-odd
+kernels one by one from Python. ``engine='numpy'`` serves the CTR zoo
+through `numpy_engine.NumpyPredictor` on the host instead: no device, no
+padding.
 """
 
 from __future__ import annotations
@@ -14,6 +22,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import threading
 
 import numpy as np
 import torch
@@ -23,21 +32,26 @@ from recsys_tpu_torch.core import checkpoint
 from recsys_tpu_torch.core import tree as tree_util
 from recsys_tpu_torch.core.config import CriteoConfig, ModelConfig
 from recsys_tpu_torch.models.api import make_model
+from recsys_tpu_torch.train import step_graph
 from recsys_tpu_torch.train.train_state import make_predict_step
+
+DEFAULT_BUCKETS = (1, 8, 64, 256, 1024, 4096)
 
 
 def export_servable(export_dir: str, model_name: str, params, model_state,
                     model_cfg: ModelConfig,
                     criteo_cfg: CriteoConfig | None = None,
+                    extra: dict | None = None,
                     factory_kwargs: dict | None = None) -> str:
     """Write port ``params``/``model_state`` as a servable in the JAX
-    layout (``convert.export_params``). ``factory_kwargs`` go to the model
-    factory at load time (DIN's ``item_vocab``/``cate_vocab``), so the
-    rebuilt parameter shapes match the exported weights."""
+    layout (``convert.export_params``), ``extra`` into the checkpoint's
+    meta. ``factory_kwargs`` go to the model factory at load time (DIN's
+    ``item_vocab``/``cate_vocab``), so the rebuilt parameter shapes match
+    the exported weights."""
     os.makedirs(export_dir, exist_ok=True)
     mgr = checkpoint.CheckpointManager(export_dir, keep_max=1)
     mgr.save(0, (convert.export_params(params),
-                 convert.export_params(model_state)))
+                 convert.export_params(model_state)), extra=extra)
     meta = {
         "model_name": model_name,
         "model_cfg": dataclasses.asdict(model_cfg),
@@ -80,6 +94,16 @@ def _check_like(template, tree) -> list:
     return [leaf for _, leaf in got]
 
 
+class _BucketGraph:
+    """The graph of one padded signature, and the lock its caller holds
+    from copying its rows into the static buffers to having the answer on
+    the host."""
+
+    def __init__(self, name: str):
+        self.graph = step_graph.StepGraph(name)
+        self.lock = threading.Lock()
+
+
 class Servable:
     """Loaded inference endpoint on one device.
 
@@ -94,20 +118,41 @@ class Servable:
     one out of range is a ``ValueError`` (a 400 from the server) and never
     reaches a gather.
 
+    ``buckets``: the padded batch sizes, as in the JAX package.
+    ``engine``: ``'jit'`` (the device path; the JAX command line's name
+    for it) or ``'numpy'`` (`numpy_engine.NumpyPredictor` on the host, the
+    CTR zoo only). ``graphed``: whether the device path replays one CUDA
+    graph per padded signature; by default on the card, and eagerly
+    (``False``) at the same padded shapes. ``True`` off the card raises. A
+    capture or replay that fails raises, naming the servable and the
+    signature; nothing runs eagerly in its place.
+
     Thread-safety contract: `predict` MUST be safe to call concurrently
     from several threads; the server's micro-batcher runs it on the
     caller's thread while its worker may run a coalesced batch. It is: the
-    parameters are read-only after load, each call allocates its own
-    tensors under ``torch.inference_mode()``, and the only state shared
-    between calls is the kernels' launch counters, which their wrappers
-    update under a lock.
+    parameters are read-only after load; an eager call allocates its own
+    tensors under ``torch.inference_mode()``; a graphed call holds its
+    signature's lock from copying its rows into the graph's static buffers,
+    through the replay, to its answer being on the host, so two callers
+    never share a buffer (calls of other signatures run meanwhile), and a
+    capture holds it too. Captures run in CUDA's thread_local mode, so
+    other threads' CUDA work goes on beside one. The kernels' launch
+    counters are updated under their wrappers' locks.
     """
 
-    def __init__(self, export_dir: str, device: str = "cuda"):
+    def __init__(self, export_dir: str, device: str = "cuda",
+                 buckets: tuple[int, ...] = DEFAULT_BUCKETS,
+                 engine: str = "jit", graphed: bool | None = None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Servable(device='cuda'): no CUDA device is "
                                "available")
+        if engine not in ("jit", "numpy"):
+            raise ValueError(f"engine {engine!r}: want 'jit' or 'numpy'")
+        if not buckets or min(buckets) < 1:
+            raise ValueError(f"buckets {buckets}: want positive sizes")
+        self.buckets = tuple(sorted(int(b) for b in buckets))
+        self.engine = engine
         with open(os.path.join(export_dir, "servable.json")) as f:
             meta = json.load(f)
         self.model_name = meta["model_name"]
@@ -126,7 +171,7 @@ class Servable:
         restored = checkpoint.CheckpointManager(export_dir).restore()
         if restored is None:
             raise FileNotFoundError(f"no weights in {export_dir}")
-        tree, _ = restored
+        tree, _, _ = restored
         # shapes only: the meta device allocates and draws nothing
         template = list(self.model.init(torch.Generator(), "meta"))
         loaded = convert.convert_params(tree, self.device)
@@ -140,6 +185,18 @@ class Servable:
             self._vocab = {"i_id": items, "i_cate": cates,
                            "hist_iid": items, "hist_cate": cates}
         self._predict = make_predict_step(self.model)
+        self._np_predict = None
+        if engine == "numpy":
+            from recsys_tpu_torch.serve.numpy_engine import NumpyPredictor
+            self._np_predict = NumpyPredictor(
+                self.model_name, self.criteo_cfg, model_cfg, self.params,
+                self.model_state)
+        self._name = f"Servable({self.model_name}, {export_dir})"
+        self.graphed = step_graph.use_graph(graphed, self.device, self._name)
+        #: padded signature → its graph; and the captures taken so far
+        self._graphs: dict[tuple, _BucketGraph] = {}
+        self._graphs_lock = threading.Lock()
+        self.captures = 0
 
     def _check_din(self, features: dict[str, np.ndarray]) -> dict:
         """DIN's four features, checked: ``i_id``/``i_cate`` [B],
@@ -189,18 +246,83 @@ class Servable:
             raise ValueError("ids must be integers in [0, field vocab)")
         return {"ids": ids, "dense": dense}
 
-    def _batch(self, features: dict[str, np.ndarray]) -> dict:
-        """`check`ed features as tensors on the device, ids as int64."""
-        return {k: torch.from_numpy(v.astype(np.int64) if v.dtype.kind in "iu"
-                                    else v).to(self.device)
-                for k, v in self.check(features).items()}
+    def _bucket(self, n: int) -> int:
+        for b in self.buckets:
+            if n <= b:
+                return b
+        top = self.buckets[-1]
+        return (n + top - 1) // top * top
+
+    @staticmethod
+    def _pad(features: dict[str, np.ndarray], b: int) -> dict:
+        """`check`ed features as the device takes them (ids int64), padded
+        to ``b`` rows by repeating the last row (a checked row, so every
+        padded id is in range)."""
+        out = {}
+        for k, v in features.items():
+            if v.dtype.kind in "iu":
+                v = v.astype(np.int64)
+            if b > len(v):
+                v = np.concatenate([v, np.repeat(v[-1:], b - len(v), 0)])
+            out[k] = np.ascontiguousarray(v)
+        return out
+
+    @staticmethod
+    def _sig(padded: dict) -> tuple:
+        return tuple(sorted((k, v.shape, v.dtype.str)
+                            for k, v in padded.items()))
 
     def predict(self, features: dict[str, np.ndarray]) -> np.ndarray:
         """features → probs [B] float32 (the "prob" serving output)."""
+        features = self.check(features)
+        if self._np_predict is not None:
+            return np.asarray(self._np_predict(features), np.float32)
+        n = len(next(iter(features.values())))
+        if n == 0:
+            return np.zeros((0,), np.float32)
+        padded = self._pad(features, self._bucket(n))
         with torch.inference_mode():
-            probs = self._predict(self.params, self.model_state,
-                                  self._batch(features))
-            return probs.float().cpu().numpy()
+            if self.graphed:
+                return self._replay(padded)[:n]
+            batch = {k: torch.from_numpy(v).to(self.device)
+                     for k, v in padded.items()}
+            probs = self._predict(self.params, self.model_state, batch)
+            return probs.float().cpu().numpy()[:n]
+
+    def _replay(self, padded: dict) -> np.ndarray:
+        """The padded request through its signature's graph, captured on
+        the signature's first request (whose answer is the capture's
+        warm-up run)."""
+        sig = self._sig(padded)
+        with self._graphs_lock:
+            entry = self._graphs.get(sig)
+            if entry is None:
+                entry = self._graphs[sig] = _BucketGraph(
+                    f"{self._name} signature {sig}")
+        held = (self.params, self.model_state)
+        with entry.lock:
+            static = entry.graph.static_for(held)
+            fresh = static is None
+            if fresh:   # (probs, input buffers): the capture reads the
+                # device of static[0]
+                rows = len(next(iter(padded.values())))
+                static = (torch.empty(rows, dtype=torch.float32,
+                                      device=self.device),
+                          {k: torch.empty(v.shape,
+                                          dtype=torch.from_numpy(v).dtype,
+                                          device=self.device)
+                           for k, v in padded.items()})
+            for k, v in padded.items():
+                static[1][k].copy_(torch.from_numpy(v))
+            if fresh:
+                entry.graph.capture(held, static, lambda: static[0].copy_(
+                    self._predict(self.params, self.model_state, static[1])))
+                with self._graphs_lock:
+                    self.captures += 1
+            else:
+                entry.graph.replay()
+            # a copy: the buffer is the next caller's once the lock is free
+            return static[0].to("cpu", copy=True).numpy()
 
     def _sample_features(self, n: int) -> dict[str, np.ndarray]:
         """A synthetic request of ``n`` rows: Criteo rows, or what the
@@ -212,6 +334,12 @@ class Servable:
         return self.model.meta["sample_features"](n)
 
     def warmup(self) -> None:
-        """One request of batch 1, so the first client does not pay the
-        kernel build."""
-        self.predict(self._sample_features(1))
+        """One synthetic request at every bucket, so no client pays the
+        kernels' build or a capture: on the card it captures each bucket's
+        graph. The numpy engine has nothing to warm up."""
+        if self._np_predict is not None:
+            return
+        sample = self._sample_features(1)
+        for b in self.buckets:
+            self.predict({k: np.repeat(v, b, axis=0)
+                          for k, v in sample.items()})

@@ -1,19 +1,22 @@
-"""REST serving with micro-batching (counterpart of
+"""Serving front ends with micro-batching (counterpart of
 ``recsys_tpu/serve/server.py``).
 
 - REST: ``POST /v1/models/<name>:predict`` with ``{"instances": [...]}`` →
   ``{"predictions": [...]}`` (TF-Serving's JSON surface), or a binary
   columnar body in the NPZ1 or RAW1 format, answered in the same format.
+- gRPC: the generic bytes-unary method ``/recsys.Predictor/Predict``
+  carrying the same bodies (no protoc; stock ``grpcio``, imported only by
+  `make_grpc_server`).
 - A micro-batching queue coalesces concurrent requests into one device
-  call.
+  call. `fastsock.SocketServer` (length-prefixed frames on a persistent
+  TCP connection) shares it.
 
 Feature payloads: each instance is ``{"ids": [39 ints], "dense": [13
 floats]}`` for the Criteo models and ``{"i_id": int, "i_cate": int,
 "hist_iid": [P ints], "hist_cate": [P ints]}`` for DIN; the columnar
 formats carry the same names as arrays. The micro-batcher concatenates the
 requests it coalesces, so DIN requests with different P that land in one
-device call fail together (as in the JAX package). gRPC and the raw-socket
-front end are not ported yet.
+device call fail together (as in the JAX package).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import json
 import queue
 import struct
 import threading
+from concurrent import futures
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
@@ -33,19 +37,26 @@ from recsys_tpu_torch.serve.export import Servable
 class _MicroBatcher:
     """Coalesce concurrent predict calls into single device invocations.
 
-    Batching is opportunistic: a request never waits for company; whatever
-    is already queued when the worker picks up a request rides the same
-    device call, up to ``MAX_BATCH`` rows. Each request is checked
-    (`Servable.check`) on its caller's thread before it is queued or run
-    inline, so an invalid one raises to its own caller only."""
+    Batching is opportunistic by default (``timeout_ms=0``): a request
+    never waits for company; whatever is already queued when the worker
+    picks up a request rides the same device call, up to ``max_batch``
+    rows (the last request may take the group past it). With
+    ``timeout_ms > 0`` the worker waits up to that long for each further
+    request, trading a lone request's latency for larger groups. Each
+    request is checked (`Servable.check`) on its caller's thread before it
+    is queued or run inline, so an invalid one raises to its own caller
+    only."""
 
-    MAX_BATCH = 4096
-
-    def __init__(self, servable: Servable):
+    def __init__(self, servable: Servable, max_batch: int = 4096,
+                 timeout_ms: float = 0.0):
         self.servable = servable
+        self.max_batch = max_batch
+        self.timeout_s = timeout_ms / 1000.0
         self.q: queue.Queue = queue.Queue()
         self._inline = threading.Lock()
         self._stop = threading.Event()
+        #: rows of the largest group the worker ran
+        self.largest_group = 0
         self.thread = threading.Thread(target=self._loop, daemon=True)
         self.thread.start()
 
@@ -78,9 +89,10 @@ class _MicroBatcher:
                 continue
             group = [first]
             n = len(next(iter(first["features"].values())))
-            while n < self.MAX_BATCH:
+            while n < self.max_batch:
                 try:
-                    nxt = self.q.get_nowait()
+                    nxt = (self.q.get_nowait() if self.timeout_s <= 0
+                           else self.q.get(timeout=self.timeout_s))
                 except queue.Empty:
                     break
                 group.append(nxt)
@@ -91,6 +103,7 @@ class _MicroBatcher:
                     k: np.concatenate([g["features"][k] for g in group])
                     for k in keys
                 }
+                self.largest_group = max(self.largest_group, n)
                 probs = self.servable.predict(merged)
                 lo = 0
                 for g in group:
@@ -194,12 +207,17 @@ def _instances_to_features(instances: list[dict]) -> dict[str, np.ndarray]:
     return feats
 
 
-def make_rest_server(servable: Servable, port: int):
-    """(ThreadingHTTPServer on 127.0.0.1:port, its batcher); ``port=0``
-    binds a free port (``server.server_address[1]``). The caller runs
-    ``serve_forever`` and, at the end, ``shutdown``, ``server_close`` and
-    ``batcher.stop``."""
-    batcher = _MicroBatcher(servable)
+def _error(e: Exception) -> bytes:
+    return json.dumps({"error": f"{type(e).__name__}: {e}"}).encode()
+
+
+def make_rest_server(servable: Servable, port: int,
+                     batcher: _MicroBatcher | None = None):
+    """(ThreadingHTTPServer on 127.0.0.1:port, its batcher: ``batcher``,
+    or a new one); ``port=0`` binds a free port
+    (``server.server_address[1]``). The caller runs ``serve_forever`` and,
+    at the end, ``shutdown``, ``server_close`` and ``batcher.stop``."""
+    batcher = batcher or _MicroBatcher(servable)
     model_name = servable.model_name
 
     class Handler(BaseHTTPRequestHandler):
@@ -220,8 +238,7 @@ def make_rest_server(servable: Servable, port: int):
                 out = encode_response(batcher.predict(feats), fmt)
                 code = 200
             except Exception as e:  # boundary: answer 400, keep serving
-                out = json.dumps({"error": f"{type(e).__name__}: {e}"}).encode()
-                code = 400
+                out, code = _error(e), 400
             self._reply(code, out)
 
         def do_GET(self):
@@ -234,4 +251,37 @@ def make_rest_server(servable: Servable, port: int):
             }).encode())
 
     server = ThreadingHTTPServer(("127.0.0.1", port), Handler)
+    return server, batcher
+
+
+GRPC_METHOD = "/recsys.Predictor/Predict"
+
+
+def make_grpc_server(servable: Servable, port: int,
+                     batcher: _MicroBatcher | None = None):
+    """(gRPC server on 127.0.0.1:port, its batcher) serving
+    `GRPC_METHOD`: request and answer are the REST bodies (JSON, NPZ1 or
+    RAW1). A request that fails is answered with status INVALID_ARGUMENT
+    and the error's text. The caller runs ``start`` and, at the end,
+    ``stop`` and ``batcher.stop``. Needs ``grpcio``."""
+    import grpc
+
+    batcher = batcher or _MicroBatcher(servable)
+
+    def predict(body: bytes, context) -> bytes:
+        try:
+            feats, fmt = parse_request(body)
+            return encode_response(batcher.predict(feats), fmt)
+        except Exception as e:  # boundary: fail this call, keep serving
+            context.abort(grpc.StatusCode.INVALID_ARGUMENT,
+                          _error(e).decode())
+
+    handler = grpc.method_handlers_generic_handler(
+        GRPC_METHOD.split("/")[1], {
+            GRPC_METHOD.split("/")[2]: grpc.unary_unary_rpc_method_handler(
+                predict, request_deserializer=lambda b: b,
+                response_serializer=lambda b: b)})
+    server = grpc.server(futures.ThreadPoolExecutor(max_workers=8))
+    server.add_generic_rpc_handlers((handler,))
+    server.add_insecure_port(f"127.0.0.1:{port}")
     return server, batcher

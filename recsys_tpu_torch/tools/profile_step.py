@@ -99,7 +99,6 @@ def profile_call(step_fn, ts, staged, first_step: int):
     """One call of PROFILED_STEPS under torch.profiler → (ts, the
     per-step numbers of its trace)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -107,7 +106,17 @@ def profile_call(step_fn, ts, staged, first_step: int):
         ts, loss = step_fn(ts, staged, PROFILED_STEPS, first_step)
         float(loss)
         torch.cuda.synchronize()
-    per = 1.0 / PROFILED_STEPS
+    return ts, trace_numbers(prof, PROFILED_STEPS)
+
+
+def trace_numbers(prof, units: int) -> dict:
+    """The numbers of a ``torch.profiler`` trace of ``units`` steps (or
+    predicts), per unit: device operations and busy ms, host kernel and
+    graph launch calls, every runtime call by name, the port's kernels'
+    device ms, and the five largest device operations."""
+    from torch.autograd import DeviceType
+
+    per = 1.0 / units
     ops, busy_us, sort_us, per_op, runtime = 0, 0.0, 0.0, [], {}
     kernel_us = dict.fromkeys(KERNELS, 0.0)
     names: dict[str, list[str]] = {k: [] for k in KERNELS}
@@ -125,7 +134,7 @@ def profile_call(step_fn, ts, staged, first_step: int):
         elif evt.key.startswith(("cuda", "cu")):
             runtime[evt.key] = runtime.get(evt.key, 0) + evt.count * per
     per_op.sort(reverse=True)
-    return ts, {
+    return {
         "device_ops_per_step": ops * per,
         "device_busy_ms_per_step": busy_us / 1e3 * per,
         "launch_calls_per_step": sum(

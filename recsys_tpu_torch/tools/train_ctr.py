@@ -35,9 +35,16 @@ streaming metrics over up to ``eval_steps * 10`` held-out batches,
 writes a servable (the JAX layout: either package loads it).
 
 ``serve`` loads the servable (exported by either package: a Criteo model
-or DIN, whose ``tools/train_din.py serve`` comes here) on ``--device``,
-answers one warm-up request, and serves REST on 127.0.0.1 (``--port=0``
-binds a free port and logs it).
+or DIN, whose ``tools/train_din.py serve`` comes here) on ``--device``
+with the batch buckets of ``--buckets=1,8,64,...`` (the JAX package's by
+default) and the engine of ``--engine`` (``jit``, the device path, by
+default; ``numpy``, the host's straight-line engine for the CTR zoo),
+warms every bucket up (on the card: captures its CUDA graph), and serves
+on 127.0.0.1: REST on ``--port`` (``0`` binds a free port; the log line
+names it), gRPC on port + 1 and the length-prefixed socket on port + 2,
+all through one micro-batcher, as the JAX command does. Where ``grpcio``
+is not installed, it logs that gRPC is not served and why, and serves the
+other two.
 """
 
 from __future__ import annotations
@@ -48,12 +55,18 @@ import logging
 import os
 import sys
 
+if __name__ == "__main__" and sys.argv[1:2] == ["serve"]:
+    # the host engine's small products must not wake idle BLAS threads:
+    # one thread, set before numpy loads its BLAS (as the JAX command does)
+    os.environ.setdefault("OPENBLAS_NUM_THREADS", "1")
+    os.environ.setdefault("OMP_NUM_THREADS", "1")
+
 import numpy as np
 
 _TASKS = ("train", "eval", "predict", "export", "serve")
 _FLAT = ("data_dir", "export_dir", "port", "device", "synthetic_rows",
-         "hbm_data_budget")
-_SERVE_FLAGS = ("export_dir", "port", "device")
+         "hbm_data_budget", "buckets", "engine")
+_SERVE_FLAGS = ("export_dir", "port", "device", "buckets", "engine")
 
 log = logging.getLogger("recsys_tpu_torch")
 
@@ -95,23 +108,49 @@ def device_from_flag(name: str):
 
 
 def _serve(kv: dict) -> None:
-    from recsys_tpu_torch.serve.export import Servable
-    from recsys_tpu_torch.serve.server import make_rest_server
+    from recsys_tpu_torch.serve.export import DEFAULT_BUCKETS, Servable
+    from recsys_tpu_torch.serve.fastsock import SocketServer
+    from recsys_tpu_torch.serve.server import (make_grpc_server,
+                                               make_rest_server)
 
     device = device_from_flag(kv.get("device", "cuda"))
-    sv = Servable(kv.get("export_dir", "./export"), device=device.type)
+    try:
+        buckets = (tuple(int(b) for b in kv["buckets"].split(","))
+                   if "buckets" in kv else DEFAULT_BUCKETS)
+        sv = Servable(kv.get("export_dir", "./export"), device=device.type,
+                      buckets=buckets, engine=kv.get("engine", "jit"))
+    except ValueError as e:
+        raise SystemExit(f"serve: {e}") from None
     sv.warmup()
-    # the long-lived objects (parameters, the kernel library) are final:
-    # collect once and keep them out of later collections' scans
+    # the long-lived objects (parameters, graphs, the kernel library) are
+    # final: collect once and keep them out of later collections' scans
     gc.collect()
     gc.freeze()
     rest, batcher = make_rest_server(sv, int(kv.get("port", 8500)))
-    log.info("serving %s on %s at REST:%d", sv.model_name, device.type,
-             rest.server_address[1])
+    port = rest.server_address[1]
+    try:
+        grpc_srv, _ = make_grpc_server(sv, port + 1, batcher)
+    except ModuleNotFoundError as e:
+        if e.name != "grpc":
+            raise
+        log.warning("gRPC is not served: %s (the grpcio package is not "
+                    "installed)", e)
+        grpc_srv = None
+    else:
+        grpc_srv.start()
+    sock = SocketServer(sv, port + 2, batcher)
+    sock.start()
+    log.info("serving %s on %s (%s engine, buckets %s) at REST:%d gRPC:%s "
+             "socket:%d", sv.model_name, device.type, sv.engine,
+             ",".join(map(str, sv.buckets)), port,
+             port + 1 if grpc_srv is not None else "none", port + 2)
     try:
         rest.serve_forever()
     finally:
         rest.server_close()
+        if grpc_srv is not None:
+            grpc_srv.stop(0)
+        sock.shutdown()
         batcher.stop()
 
 

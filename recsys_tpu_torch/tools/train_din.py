@@ -31,7 +31,13 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import sys
+
+if __name__ == "__main__" and sys.argv[1:2] == ["serve"]:
+    # as `train_ctr serve`: one BLAS thread, set before numpy loads it
+    os.environ.setdefault("OPENBLAS_NUM_THREADS", "1")
+    os.environ.setdefault("OMP_NUM_THREADS", "1")
 
 import numpy as np
 import torch
@@ -105,11 +111,11 @@ def main(argv: list[str] | None = None) -> dict:
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
     argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["serve"]:       # with train_ctr serve's flags
+        return train_ctr.main(argv)
     task, kv, overrides = _parse(argv)
     if task not in _TASKS:
         raise SystemExit(f"unknown task {task}")
-    if task == "serve":
-        return train_ctr.main(["serve"] + argv[1:])
 
     base = dataclasses.replace(
         RunConfig(), model=ModelConfig(name="din", embedding_dim=32,

@@ -19,8 +19,13 @@ opt_state)``. Every step draws its randomness from (``cfg.seed``, step)
 (`train_state.reseed`), so a resumed run continues the run it resumes.
 Checkpoints are written in the JAX package's layout
 (`convert.export_params` turns the big table back into ``big_wm``), so
-either package can resume from the other's. The JSONL/TensorBoard
-summaries and best-metric retention are not ported yet.
+either package can resume from the other's; each carries its eval AUC, and
+the best one so far is also kept as ``best/``. Both loops write the JAX
+loops' scalars under ``model_dir`` (`summaries.ScalarWriter`:
+``scalars.jsonl`` and a TensorBoard event file), with the same tags at the
+same steps: ``loss`` and ``examples_per_sec`` at each log step and
+``eval_auc`` and ``eval_logloss`` at each eval of `train_and_evaluate`,
+all four at each eval of `train_and_evaluate_fast`.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from recsys_tpu_torch.models.api import Model
 from recsys_tpu_torch.train import fast
 from recsys_tpu_torch.train import metrics as M
 from recsys_tpu_torch.train import train_state as TS
+from recsys_tpu_torch.train.summaries import ScalarWriter
 
 log = logging.getLogger("recsys_tpu_torch")
 
@@ -53,7 +59,7 @@ def _resume(ts, ckpt: CheckpointManager):
     restored = ckpt.restore(template)
     if restored is None:
         return ts
-    tree, step = restored
+    tree, step, _ = restored
     device = ts.step.device
     with torch.no_grad():
         for dst, src in zip(
@@ -118,6 +124,7 @@ def train_and_evaluate(model: Model, train_iter: Iterator[dict],
     losses: list[float] = []
     ex_s = float("nan")
     metrics: dict[str, float] = {}
+    writer = ScalarWriter(cfg.model_dir)
     # the prefetch threads read ahead: hand them exactly the steps' batches
     batches = device_prefetch(
         itertools.islice(train_iter, max(0, num_steps - start_step)), device)
@@ -133,6 +140,8 @@ def train_and_evaluate(model: Model, train_iter: Iterator[dict],
                 ex_s = steps_s * len(batch["label"])
                 log.info("step %d loss %.5f  %.1f steps/s  %.0f ex/s",
                          step_idx + 1, losses[-1], steps_s, ex_s)
+                writer.write(step_idx + 1, loss=losses[-1],
+                             examples_per_sec=ex_s)
                 window_t0, window_step = now, step_idx + 1
 
             do_ckpt = (step_idx + 1) % cfg.save_checkpoints_steps == 0
@@ -144,6 +153,8 @@ def train_and_evaluate(model: Model, train_iter: Iterator[dict],
                 log.info("eval @ step %d: auc %.5f logloss %.5f acc %.5f",
                          step_idx + 1, metrics["auc"], metrics["logloss"],
                          metrics["accuracy"])
+                writer.write(step_idx + 1, eval_auc=metrics["auc"],
+                             eval_logloss=metrics["logloss"])
                 do_ckpt = True
             if do_ckpt:
                 ckpt.save(step_idx + 1, convert.export_params(
@@ -151,6 +162,7 @@ def train_and_evaluate(model: Model, train_iter: Iterator[dict],
                     metric=metrics.get("auc"))
     finally:
         batches.close()
+        writer.close()
     metrics["train_seconds"] = time.time() - t0
     metrics["first_loss"] = losses[0] if losses else float("nan")
     metrics["final_loss"] = losses[-1] if losses else float("nan")
@@ -196,11 +208,14 @@ def train_and_evaluate_fast(model: Model, train_data: dict[str, np.ndarray],
     metrics: dict[str, float] = {}
     loss_v, rate = float("nan"), float("nan")
     next_eval = (done // cfg.eval_every_steps + 1) * cfg.eval_every_steps
-    while done < num_steps:
-        k = min(steps_per_call, num_steps - done, max(1, next_eval - done))
-        ts, loss = step_fn(ts, staged_train, k, done)
-        done += k
-        if done >= next_eval or done >= num_steps:
+    with ScalarWriter(cfg.model_dir) as writer:
+        while done < num_steps:
+            k = min(steps_per_call, num_steps - done,
+                    max(1, next_eval - done))
+            ts, loss = step_fn(ts, staged_train, k, done)
+            done += k
+            if done < next_eval and done < num_steps:
+                continue
             loss_v = float(loss)
             now = time.time()
             rate = (done - window_steps) / max(now - window_t0, 1e-9)
@@ -210,6 +225,10 @@ def train_and_evaluate_fast(model: Model, train_data: dict[str, np.ndarray],
             metrics = run_eval()
             log.info("eval @ step %d: auc %.5f logloss %.5f acc %.5f", done,
                      metrics["auc"], metrics["logloss"], metrics["accuracy"])
+            writer.write(done, loss=loss_v,
+                         examples_per_sec=rate * cfg.batch_size,
+                         eval_auc=metrics["auc"],
+                         eval_logloss=metrics["logloss"])
             ckpt.save(done, convert.export_params(
                 (ts.params, ts.model_state, ts.opt_state)),
                 metric=metrics["auc"])

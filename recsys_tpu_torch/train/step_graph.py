@@ -30,6 +30,11 @@ therefore draws what the eager step ``s`` draws.
 - **Launch counts.** The kernel wrappers count launches in Python, which
   a replay does not run. The counts a capture adds are taken back, and
   added again at every replay, so the counters count launches that ran.
+  The capture learns its own counts from the tally of the stream it
+  captures on (`cuda_build.launch_tally`; autograd's backward launches
+  reach that stream from autograd's own thread), so launches that other
+  threads count meanwhile on their streams (a server's other requests)
+  stay theirs.
 - **Other threads.** The capture fails only the capturing thread's
   unsafe calls, so the prefetcher's transfer thread may keep copying on
   its own stream while a step is captured.
@@ -41,7 +46,8 @@ from __future__ import annotations
 
 import torch
 
-from recsys_tpu_torch.ops import cin_kernel, row_gather, segment_sum
+from recsys_tpu_torch.ops import (cin_kernel, cuda_build, row_gather,
+                                  segment_sum)
 
 #: (module, name) of the launch counter of every kernel wrapper a training
 #: or eval step reaches
@@ -49,8 +55,9 @@ COUNTERS = ((segment_sum, "LAUNCHES"), (row_gather, "LAUNCHES"),
             (cin_kernel, "LAUNCHES"), (cin_kernel, "BWD_LAUNCHES"))
 
 
-def _counts() -> list[int]:
-    return [getattr(m, name) for m, name in COUNTERS]
+def _tallied(tally: dict) -> list[int]:
+    """The launches of each of `COUNTERS` in a `cuda_build.launch_tally`."""
+    return [tally.get(f"{m.__name__}.{name}", 0) for m, name in COUNTERS]
 
 
 def _add_counts(deltas) -> None:
@@ -135,9 +142,9 @@ class StepGraph:
         # default global mode would fail them and break the capture.
         torch.cuda.synchronize(device)
         torch.cuda.empty_cache()
-        before = _counts()
         try:
-            with torch.cuda.stream(side):
+            with cuda_build.launch_tally(side.cuda_stream) as tally, \
+                    torch.cuda.stream(side):
                 graph.capture_begin(capture_error_mode="thread_local")
                 try:
                     step()
@@ -147,7 +154,7 @@ class StepGraph:
             raise RuntimeError(f"{self.name}: CUDA graph capture failed: "
                                f"{e}") from e
         finally:
-            deltas = [a - b for a, b in zip(_counts(), before)]
+            deltas = _tallied(tally)
             _add_counts([-d for d in deltas])     # the capture ran nothing
         self._graph, self._key, self._held = graph, signature(held), held
         self.static, self._deltas = static, deltas

@@ -457,7 +457,13 @@ def test_train_din_cli_round_trip(tmp_path, monkeypatch):
     assert np.isfinite(metrics["final_loss"])
     assert np.isfinite(metrics["first_loss"])
     assert 0.0 <= metrics["auc"] <= 1.0
-    assert sorted(os.listdir(tmp_path / "m")) == ["step_15", "step_30"]
+    # the checkpoints, the best one, and the scalars (JSONL and one event
+    # file), as a JAX run leaves them
+    names = sorted(os.listdir(tmp_path / "m"))
+    events = [n for n in names if n.startswith("events.out.tfevents.")]
+    assert len(events) == 1
+    assert [n for n in names if n not in events] == [
+        "best", "scalars.jsonl", "step_15", "step_30"]
     # a second run resumes at step 30 and trains to 40
     metrics = train_din.main(train + ["--train.num_steps=40"] + common)
     assert os.path.exists(tmp_path / "m" / "step_40")

@@ -1024,3 +1024,155 @@ def test_fed_step_captures_while_a_stager_copies(cuda_device):
     assert during > 0                  # the stager ran beside the captures
     assert all(torch.equal(a, b) for a, b in zip(l_e, l_g, strict=True))
     _assert_bitwise(ts_e, ts_g)
+
+
+# ------------------------------------------------ serving: bucket graphs
+
+def _serving_export(path, key):
+    """A port export of a narrow model, every branch's weights seeded
+    noise: xDeepFM (CIN 20-10-10), DCN on the fused engine, or DIN."""
+    if key == "din":
+        mcfg = ModelConfig(name="din", embedding_dim=32, use_bn=False)
+        params, state = make_model("din", 5000, 100, mcfg).init(
+            torch.Generator().manual_seed(0), "cpu")
+        export_servable(str(path), "din", params, state, mcfg,
+                        factory_kwargs={"item_vocab": 5000,
+                                        "cate_vocab": 100})
+        return str(path)
+    name, engine = {"xdeepfm": ("xdeepfm", "split"),
+                    "dcn": ("dcn", "fused")}[key]
+    ccfg = CriteoConfig(cat_vocabs=GRAPH_VOCABS)
+    mcfg = ModelConfig(name=name, embedding_dim=8, deep_layers=(32, 32),
+                       cin_layers=(20, 10, 10), emb_engine=engine)
+    params, state = make_model(name, ccfg, mcfg).init(
+        torch.Generator().manual_seed(0), "cpu")
+    gen = torch.Generator().manual_seed(1)
+    params = tree_util.fill_like(params, [
+        p + 0.1 * torch.randn(p.shape, generator=gen)
+        for p in tree_util.leaves(params)])
+    export_servable(str(path), name, params, state, mcfg, ccfg)
+    return str(path)
+
+
+def _serving_features(sv, n, seed):
+    if sv.criteo_cfg is None:
+        return sv.model.meta["sample_features"](n)
+    d = synthetic_criteo(n, sv.criteo_cfg, start_row=1000 * seed)
+    return {"ids": d["ids"], "dense": d["dense"]}
+
+
+#: kernel launches of one request: (row gathers, CIN forward layers);
+#: DCN here reads its one fused table
+SERVING_LAUNCHES = {"xdeepfm": (2, 3), "dcn": (1, 0), "din": (5, 0)}
+
+
+@pytest.mark.parametrize("key", ["xdeepfm", "dcn", "din"])
+def test_graphed_servable_equals_eager_at_every_bucket(cuda_device,
+                                                       tmp_path, key):
+    """`warmup` captures one graph a bucket; at each bucket (and past the
+    largest) the graphed answer is bitwise the eager answer at the same
+    padded shape, within 1e-4 of the CPU servable, and each request
+    launches its kernels exactly once under replay."""
+    d = _serving_export(tmp_path, key)
+    sv = Servable(d, device="cuda")
+    eager = Servable(d, device="cuda", graphed=False)
+    cpu = Servable(d, device="cpu")
+    assert sv.graphed and not eager.graphed
+    sv.warmup()
+    assert sv.captures == len(sv.buckets)
+    rows, cin = SERVING_LAUNCHES[key]
+    for i, n in enumerate((1, 5, 8, 64, 200, 256, 1000, 4096)):
+        feats = _serving_features(sv, n, i)
+        before = (rg.LAUNCHES, cin_kernel.LAUNCHES, ss.LAUNCHES)
+        got = sv.predict(feats)
+        torch.cuda.synchronize()
+        assert (rg.LAUNCHES - before[0], cin_kernel.LAUNCHES - before[1],
+                ss.LAUNCHES - before[2]) == (rows, cin, 0)
+        np.testing.assert_array_equal(got, eager.predict(feats))
+        np.testing.assert_allclose(got, cpu.predict(feats), atol=1e-4,
+                                   rtol=0)
+    assert sv.captures == len(sv.buckets)
+    feats = _serving_features(sv, 4097, 9)     # 8192 rows: one new capture
+    np.testing.assert_array_equal(sv.predict(feats), eager.predict(feats))
+    assert sv.captures == len(sv.buckets) + 1
+
+
+def test_concurrent_replays_answer_their_own_rows(cuda_device, tmp_path):
+    """Twelve threads, mixed batches over four buckets, through one
+    graphed servable: every answer is bitwise the eager answer for its own
+    request."""
+    d = _serving_export(tmp_path, "xdeepfm")
+    sv = Servable(d, device="cuda")
+    eager = Servable(d, device="cuda", graphed=False)
+    sv.warmup()
+    reqs = [_serving_features(sv, 1 + (37 * i) % 1500, i) for i in range(96)]
+    want = [eager.predict(r) for r in reqs]
+    got, errors = {}, []
+    start = threading.Barrier(12)
+
+    def client(t):
+        try:
+            start.wait(60)
+            for i in range(t, len(reqs), 12):
+                got[i] = sv.predict(reqs[i])
+        except BaseException as e:  # noqa: BLE001 - asserted below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(t,)) for t in range(12)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors
+    for i, w in enumerate(want):
+        np.testing.assert_array_equal(got[i], w, err_msg=f"request {i}")
+
+
+def test_a_capture_beside_another_threads_launches_counts_its_own(
+        cuda_device, tmp_path):
+    """DIN captures new signatures (a new history length) while another
+    thread copies to the card and launches row gathers eagerly: neither
+    fails, the answers are the eager ones, and each graph's launch counts
+    are its own request's (5 row gathers), whatever the other thread
+    counted during the capture."""
+    d = _serving_export(tmp_path, "din")
+    sv = Servable(d, device="cuda")
+    eager = Servable(d, device="cuda", graphed=False)
+    stop, errors, launched = threading.Event(), [], [0]
+    device = torch.device("cuda", torch.cuda.current_device())
+
+    def other():
+        try:
+            torch.cuda.set_device(device)
+            table = torch.randn(5000, 32, device=device)
+            while not stop.is_set():
+                ids = torch.from_numpy(
+                    np.random.randint(0, 5000, 4096)).to(device)
+                rg.row_gather(table, ids)
+                launched[0] += 1
+        except BaseException as e:  # noqa: BLE001 - asserted below
+            errors.append(e)
+
+    thread = threading.Thread(target=other, daemon=True)
+    thread.start()
+    try:
+        deadline = time.monotonic() + 60
+        while launched[0] < 10 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        answers = []
+        for p in (8, 16, 24, 40):
+            feats = sv.model.meta["sample_features"](300, hist_len=p)
+            answers.append((feats, sv.predict(feats)))
+        during = launched[0]
+    finally:
+        stop.set()
+        thread.join(30)
+    assert not thread.is_alive() and not errors, errors
+    assert during > 10
+    assert sv.captures == 4
+    for feats, got in answers:
+        np.testing.assert_array_equal(got, eager.predict(feats))
+        before = rg.LAUNCHES
+        sv.predict(feats)                       # a replay
+        assert rg.LAUNCHES - before == 5

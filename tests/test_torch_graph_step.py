@@ -25,6 +25,8 @@ config (vocabs ``(50,)*20 + (3000,)*6``, embedding dim 4, towers 8-8,
   ``--pairs=N``.
 """
 
+import threading
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -303,3 +305,27 @@ def test_graphed_train_call_at_a_new_width_captures_anew(stand_in_graphs):
     assert all(torch.equal(a, b) for a, b in zip(l_e, l_g, strict=True))
     assert all(torch.equal(a, b) for a, b in zip(p_e, p_g, strict=True))
     assert stand_in_graphs == ["make_scanned_train_step"] * 3
+
+
+def test_a_launch_tally_counts_its_own_stream_only():
+    """`cuda_build.launch_tally` (what a graph capture takes back and adds
+    at each replay) counts the launches made on its stream, from any
+    thread (autograd's backward thread launches on the capturing stream),
+    and none made on another stream meanwhile."""
+    from recsys_tpu_torch.ops import cuda_build
+
+    cuda_build.tally_launch("row_gather.LAUNCHES", 7)   # no tally open
+    with cuda_build.launch_tally(7) as tally:
+        cuda_build.tally_launch("row_gather.LAUNCHES", 7)
+        other = threading.Thread(target=lambda: [
+            cuda_build.tally_launch("segment_sum.LAUNCHES", 7),
+            cuda_build.tally_launch("segment_sum.LAUNCHES", 8)])
+        other.start()
+        other.join(10)
+        cuda_build.tally_launch("row_gather.LAUNCHES", 9)
+    assert not other.is_alive()
+    assert tally == {"row_gather.LAUNCHES": 1, "segment_sum.LAUNCHES": 1}
+    assert step_graph._tallied({"recsys_tpu_torch.ops.row_gather.LAUNCHES":
+                                3}) == [0, 3, 0, 0]
+    cuda_build.tally_launch("row_gather.LAUNCHES", 7)   # closed: no error
+    assert tally["row_gather.LAUNCHES"] == 1

@@ -31,7 +31,9 @@ def test_the_scan_sees_the_package():
     assert len(FILES) > 15
     for mod in ("models/din.py", "ops/row_gather.py", "data/amazon.py",
                 "tools/train_din.py", "models/ctr.py", "ops/reshape_probe.py",
-                "embeddings/engines.py", "train/optim.py"):
+                "embeddings/engines.py", "train/optim.py",
+                "serve/fastsock.py", "serve/numpy_engine.py",
+                "train/summaries.py", "train/tb_events.py"):
         assert ROOT / "recsys_tpu_torch" / mod in FILES, mod
     assert "torch" in set(_imports(ROOT / "recsys_tpu_torch" / "ops" /
                                    "cin_kernel.py"))

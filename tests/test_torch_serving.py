@@ -218,8 +218,8 @@ def test_checkpoint_manager_keeps_the_last_k(tmp_path):
         mgr.save(step, [{"w": np.full(3, step, np.float32)}])
     # published by rename: no step_N.tmp is left behind
     assert sorted(p.name for p in tmp_path.iterdir()) == ["step_2", "step_3"]
-    tree, step = mgr.restore()
-    assert step == 3
+    tree, step, extra = mgr.restore()
+    assert step == 3 and extra == {}
     np.testing.assert_array_equal(tree[0]["w"], np.full(3, 3, np.float32))
     assert checkpoint.CheckpointManager(str(tmp_path / "none")).restore() is None
 

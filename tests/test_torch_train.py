@@ -272,7 +272,7 @@ def test_checkpoint_paths_and_template_restore(tmp_path):
         for p, _ in jax.tree_util.tree_flatten_with_path(jtree)[0]]
     mgr = checkpoint.CheckpointManager(str(tmp_path))
     mgr.save(7, tree, metric=0.5)
-    restored, step = mgr.restore(tree)
+    restored, step, _ = mgr.restore(tree)
     assert step == 7 and type(restored[2]) is type(tree[2])
     _assert_trees_close(convert.convert_params(restored), tree, atol=0,
                         rtol=0)
