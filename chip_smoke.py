@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py          # from the repository root; needs one
                                    # CUDA card and nvcc (CUDA_HOME or PATH)
+    python3 chip_smoke.py --spmd-only   # the build and the SPMD phase alone,
+                                        # its line and no result line
 
 It fails (exit code other than 0, no result line) without a CUDA device or
 without the package beside it. On a card it
@@ -133,7 +135,17 @@ without the package beside it. On a card it
    steps and one TensorBoard event file with a record (its crc32c checked)
    for each scalar line; then ``train_din export`` writes a servable that
    loads on the card;
-9. a 262,144-line Criteo-format TSV (about 20% of numeric and 10% of
+9. the multi-device path at one member: NCCL in a world of one rank, the
+   dedup + all-to-all lookup of DeepFM's big table at batch 16384 (exact
+   capacity) bitwise ``table_gather`` and the psum oracle, its table
+   gradient (the owner gather's backward: the segment sum) within 1e-5
+   of the local one, both timed; 5 full-width DeepFM steps (dropout 0)
+   through the SPMD step with the exchange on, against the graphed local
+   step from the same parameters (losses within 1e-4, parameters within
+   one Adam step's tolerance, S1 and K2 launched twice a step), and the
+   step times of each and of the local step run eagerly (``--spmd-only``
+   runs this phase alone, after the build);
+10. a 262,144-line Criteo-format TSV (about 20% of numeric and 10% of
    categorical fields missing): the native host library must have built,
    its parse must equal the pure-Python path on the first 5,000 rows, and
    ``preprocess_tsv`` shards it (rows/s printed); ``train_ctr train
@@ -1956,7 +1968,267 @@ def tsv_phase(ccfg) -> dict:
     return {"rows_s": rows_s}
 
 
+def _owner_gather_kernels(a2a, fwd_bwd, rg, ss) -> dict:
+    """S1 and K2 at the shapes the sharded lookup's owner gather gives
+    them: their inputs recorded during one forward + backward of ``a2a``,
+    then each wrapper against its plain version (S1 bitwise; K2 within
+    1e-5 of each row's Σ|g|) and timed as device time in a CUDA graph
+    (order plain, kernel, kernel, plain) beside the library call
+    (``index_select``; ``index_add_`` into a buffer zeroed once) and its
+    bound. → {'s1': …, 'k2': …}"""
+    seen = {}
+    real = rg.row_gather, ss.segment_sum
+
+    def rec_gather(table, ids):
+        seen["s1"] = (table.detach(), ids)
+        return real[0](table, ids)
+
+    def rec_sum(ids, grads, rows):
+        seen["k2"] = (ids, grads.detach(), rows)
+        return real[1](ids, grads, rows)
+
+    rg.row_gather, ss.segment_sum = rec_gather, rec_sum
+    try:
+        fwd_bwd(a2a)
+    finally:
+        rg.row_gather, ss.segment_sum = real
+    out = {}
+    table, ids = seen["s1"]
+    n, w = ids.shape[0], table.shape[1]
+    got = rg.row_gather(table, ids)
+    _check(torch.equal(got, torch.index_select(table, 0, ids)),
+           "SPMD: the owner gather's row gather differs from index_select")
+    sel = torch.empty_like(got)
+    t = [_graph_ms(f) for f in (
+        lambda: torch.index_select(table, 0, ids, out=sel),
+        lambda: rg.row_gather(table, ids),
+        lambda: rg.row_gather(table, ids),
+        lambda: torch.index_select(table, 0, ids, out=sel))]
+    b_ms, b_by = _bound(8 * n + 4 * w * (int(torch.unique(ids).numel()) + n),
+                        0)
+    out["s1"] = {"ms": (t[1] + t[2]) / 2, "plain_ms": (t[0] + t[3]) / 2,
+                 "library_ms": (t[0] + t[3]) / 2, "bound_ms": b_ms,
+                 "bound_by": b_by, "max_abs_err": 0.0,
+                 "shape": [n, list(table.shape)]}
+    ids, grads, rows = seen["k2"]
+    n, w = grads.shape
+    got = ss.segment_sum(ids, grads, rows)
+    ref = ss.segment_sum_reference(ids, grads, rows)
+    scale = ss.segment_sum_reference(ids, grads.abs(), rows)
+    err = (got - ref).abs()
+    _check(bool((err <= 1e-5 * scale + 1e-6).all()),
+           "SPMD: the owner gather's segment sum disagrees with its plain "
+           "version")
+    buf = torch.zeros_like(got)
+    t = [_graph_ms(f) for f in (
+        lambda: ss.segment_sum_reference(ids, grads, rows),
+        lambda: ss.segment_sum(ids, grads, rows),
+        lambda: ss.segment_sum(ids, grads, rows),
+        lambda: ss.segment_sum_reference(ids, grads, rows))]
+    b_ms, b_by = _bound(_segment_sum_bytes(n, w, rows), n * w)
+    out["k2"] = {"ms": (t[1] + t[2]) / 2, "plain_ms": (t[0] + t[3]) / 2,
+                 "library_ms": _graph_ms(lambda: buf.index_add_(0, ids,
+                                                                grads)),
+                 "bound_ms": b_ms, "bound_by": b_by,
+                 "max_abs_err": float(err.max()),
+                 "shape": [n, rows, w],
+                 "unique_ids": int(torch.unique(ids).numel())}
+    return out
+
+
+SPMD_STEPS = 5                 # SPMD against local, from one state
+SPMD_TIMED = 10                # steps in each timed run
+
+
+def spmd_phase(ccfg, dev, rg, ss) -> dict:
+    """The multi-device path at one member over NCCL: the process group of
+    a world of one rank (a file store in a temporary directory) on the
+    card, then
+
+    - the dedup + all-to-all lookup (``exact``) of full-width DeepFM's big
+      table at batch 16384: forward bitwise ``table_gather``'s and the psum
+      oracle's, the table gradient (the owner gather's backward: the
+      segment sum, K2's contract) within 1e-5 of the local gather's, its
+      forward plus backward timed back to back and as device time under
+      ``torch.profiler`` beside the local gather's;
+    - full-width DeepFM (dropout 0, Adam 1e-3, batch 16384) trained
+      SPMD_STEPS steps through ``make_spmd_train_step`` with sharded ops
+      built for the one-member model axis (so the exchange runs) and through
+      the graphed host-fed local step, from the same parameters: every loss
+      within 1e-4, the parameters within one Adam step's tolerance
+      (tests/test_spmd.py), the launches of S1 and K2 counted over the SPMD
+      steps alone; then SPMD_TIMED-step runs of each, and of the local
+      step run eagerly, in the order SPMD, graphed, eager, eager, graphed,
+      SPMD. The threads alive at the phase's start are reported.
+
+    The process group is destroyed at the end. → numbers of the run."""
+    import torch.distributed as dist
+
+    from recsys_tpu_torch.core import mesh as mesh_lib
+    from recsys_tpu_torch.core import tree
+    from recsys_tpu_torch.core.config import MeshConfig, ModelConfig
+    from recsys_tpu_torch.data.criteo import synthetic_criteo
+    from recsys_tpu_torch.embeddings import table as emb_table
+    from recsys_tpu_torch.models.api import make_model
+    from recsys_tpu_torch.parallel import sharded_embedding as SE
+    from recsys_tpu_torch.parallel import spmd
+    from recsys_tpu_torch.train import fast
+    from recsys_tpu_torch.train import train_state as TS
+
+    batch_size = 16384
+    model = make_model("deepfm", ccfg, ModelConfig(dropout=0.0))
+    batches = [fast.stage_dataset(synthetic_criteo(
+        batch_size, ccfg, start_row=i * batch_size), dev)
+        for i in range(SPMD_STEPS + 1)]
+    out = {"threads": sorted(t.name for t in threading.enumerate())}
+    with tempfile.TemporaryDirectory() as tmp:
+        device = mesh_lib.distributed_init(f"file://{tmp}/store", 1, 0,
+                                           timeout_s=300)
+        try:
+            _check(dist.get_backend() == "nccl" and device.type == "cuda",
+                   f"SPMD: process group {dist.get_backend()} on {device}")
+            env = mesh_lib.make_mesh(MeshConfig(), device)
+
+            # the exchange on the big table
+            params, _ = model.init(torch.Generator().manual_seed(0), device)
+            table = params["tables"]["big"]
+            (_, _, fields, offsets), = [
+                c for c in model.meta["engine"]._index_tensors(device)
+                if c[0] == "big"]
+            gids = batches[0]["ids"].index_select(1, fields) + offsets
+            got = SE.a2a_embedding_lookup(table, gids, env.model, exact=True)
+            _check(torch.equal(got, emb_table.table_gather(table, gids)) and
+                   torch.equal(got, SE.psum_embedding_lookup(table, gids,
+                                                             env.model)),
+                   "SPMD: the a2a lookup is not bitwise the table gather "
+                   "and the psum lookup")
+            g_out = torch.randn(*got.shape, device=device,
+                                generator=torch.Generator(device)
+                                .manual_seed(3))
+            live = table.detach().clone().requires_grad_()
+
+            def fwd_bwd(lookup):
+                return torch.autograd.grad((lookup(live) * g_out).sum(),
+                                           live)[0]
+
+            def a2a(t):
+                return SE.a2a_embedding_lookup(t, gids, env.model,
+                                               exact=True)
+
+            def local(t):
+                return emb_table.table_gather(t, gids)
+
+            g_a2a, g_local = fwd_bwd(a2a), fwd_bwd(local)
+            rel = float((g_a2a - g_local).abs().max()
+                        / g_local.abs().max())
+            _check(rel <= 1e-5, f"SPMD: the a2a table gradient is {rel} "
+                   "of the largest off the local one (tolerance 1e-5)")
+            out.update(_owner_gather_kernels(a2a, fwd_bwd, rg, ss))
+            for name, lookup in (("a2a", a2a), ("local", local)):
+                def fn():
+                    fwd_bwd(lookup)
+                ops = _device_breakdown(fn)
+                out[name] = {"ms": _cuda_ms(fn, 20),
+                             "device_ms": sum(r[1] for r in ops),
+                             "top_ops": [r[:2] for r in ops[:6]]}
+            out["lookup"] = {"ids": int(gids.numel()),
+                             "table": list(table.shape),
+                             "grad_rel_err": rel}
+
+            # SPMD steps against the graphed local step
+            ts_l, tx = TS.create_train_state(model, 0, 1e-3, device)
+            ts_s = spmd.create_spmd_state(model, env, 0, tx)
+            local_step = fast.make_fed_train_step(model, tx)
+            eager_step = fast.make_fed_train_step(model, tx, graphed=False)
+            spmd_step = spmd.make_spmd_train_step(
+                model, tx, env, len(batches[0]["label"]),
+                emb_ops=spmd.sharded_emb_ops(env.model, exact=True))
+            losses = {"spmd": [], "local": []}
+            torch.cuda.synchronize()
+            ss.LAUNCHES = rg.LAUNCHES = 0       # the SPMD path starts here
+            for i in range(SPMD_STEPS):
+                ts_s, loss = spmd_step(ts_s, batches[i], i)
+                losses["spmd"].append(float(loss))
+            counts = {"segment_sum": ss.LAUNCHES,
+                      "row_gather": rg.LAUNCHES}   # ... and ends here
+            for i in range(SPMD_STEPS):
+                losses["local"].append(float(local_step(ts_l, batches[i],
+                                                        i)))
+            loss_diff = max(abs(a - b) for a, b in zip(losses["spmd"],
+                                                       losses["local"]))
+            worst = (0.0, 0.0)
+            for a, b in zip(tree.leaves(ts_s.params),
+                            tree.leaves(ts_l.params)):
+                d = (a - b).abs()
+                worst = (max(worst[0], float(d.max())),
+                         max(worst[1], float(d.mean())))
+            _check(loss_diff <= 1e-4, f"SPMD: losses {losses} differ by "
+                   f"{loss_diff} (tolerance 1e-4)")
+            _check(worst[0] <= 5e-3 and worst[1] < 2e-4,
+                   f"SPMD: parameters after {SPMD_STEPS} steps differ by "
+                   f"{worst[0]} at most, {worst[1]} on average (tolerance "
+                   "5e-3 and 2e-4)")
+            _check(counts["segment_sum"] == 2 * SPMD_STEPS and
+                   counts["row_gather"] == 2 * SPMD_STEPS,
+                   f"SPMD: launches {counts} over {SPMD_STEPS} steps, want "
+                   f"{2 * SPMD_STEPS} each (the small table's read and the "
+                   "big table's owner gather)")
+            step_ms = {"spmd": [], "local": [], "eager": []}
+            done = SPMD_STEPS
+            for mode in ("spmd", "local", "eager", "eager", "local", "spmd"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for i in range(SPMD_TIMED):
+                    batch = batches[i % len(batches)]
+                    if mode == "spmd":
+                        ts_s, loss = spmd_step(ts_s, batch, done + i)
+                    elif mode == "local":
+                        loss = local_step(ts_l, batch, done + i)
+                    else:
+                        loss = eager_step(ts_l, batch, done + i)
+                torch.cuda.synchronize()
+                step_ms[mode].append((time.perf_counter() - t0) * 1e3
+                                     / SPMD_TIMED)
+                done += SPMD_TIMED
+        finally:
+            dist.destroy_process_group()
+    out.update(counts=counts, losses=losses, loss_diff=loss_diff,
+               param_diff=worst, step_ms=step_ms)
+    return out
+
+
+def _report_spmd(sp: dict, card: str) -> None:
+    print(f"SPMD at one member over NCCL [{card}]: DeepFM's big table, "
+          f"{sp['lookup']['ids']} ids into {sp['lookup']['table']}: the a2a "
+          f"lookup's forward + backward {sp['a2a']['ms']:.4f} ms back to "
+          f"back, {sp['a2a']['device_ms']:.4f} ms of device time (the local "
+          f"gather's {sp['local']['ms']:.4f} / "
+          f"{sp['local']['device_ms']:.4f} ms), gradient within "
+          f"{sp['lookup']['grad_rel_err']:.2e} of the local one; "
+          f"{SPMD_STEPS} DeepFM steps at batch 16384: eager SPMD step "
+          f"{['%.3f' % x for x in sp['step_ms']['spmd']]} ms against the "
+          f"graphed local step {['%.3f' % x for x in sp['step_ms']['local']]}"
+          f" ms and the eager local step "
+          f"{['%.3f' % x for x in sp['step_ms']['eager']]} ms (order SPMD, "
+          "graphed, eager, eager, graphed, SPMD), losses within "
+          f"{sp['loss_diff']:.2e}, parameters within {sp['param_diff'][0]:.2e}"
+          f" (mean {sp['param_diff'][1]:.2e}); launches on the SPMD steps "
+          f"{sp['counts']}; device ops of the a2a forward + backward "
+          f"{sp['a2a']['top_ops']}; the owner gather's kernels, device ms "
+          f"in a CUDA graph: row gather {sp['s1']['ms']:.4f} (index_select "
+          f"{sp['s1']['plain_ms']:.4f}, bound {sp['s1']['bound_ms']:.4f}), "
+          f"segment sum {sp['k2']['ms']:.4f} (plain "
+          f"{sp['k2']['plain_ms']:.4f}, index_add_ "
+          f"{sp['k2']['library_ms']:.4f}, bound {sp['k2']['bound_ms']:.4f};"
+          f" {sp['k2']['unique_ids']} distinct of {sp['k2']['shape'][0]} "
+          f"ids); threads alive at the phase's start: {sp['threads']}",
+          flush=True)
+
+
 def main() -> None:
+    spmd_only = sys.argv[1:] == ["--spmd-only"]
+    if sys.argv[1:] and not spmd_only:
+        raise SystemExit("usage: python3 chip_smoke.py [--spmd-only]")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script runs only on a CUDA GPU")
@@ -1996,6 +2268,9 @@ def main() -> None:
               + ("; ".join(spills) if spills else "none"), flush=True)
 
     ccfg = CriteoConfig()
+    if spmd_only:
+        _report_spmd(spmd_phase(ccfg, dev, rg, ss), card)
+        return
     f0 = len(ccfg.field_vocab_sizes)
     xcfg = ModelConfig(name="xdeepfm")
     # (F0, Fk, H) of each CIN layer: 39 fields, then each layer's width
@@ -2130,6 +2405,8 @@ def main() -> None:
     din = din_train_phase(din_train, din_eval, dev, rg, ss)
     stream = streaming_phase(ccfg, dev, rg, ss)
     din_fed = din_fed_phase(din_train, dev)
+    sp = spmd_phase(ccfg, dev, rg, ss)
+    _report_spmd(sp, card)
     print(f"training throughput [{card}]: "
           + ", ".join(f"{k} {v['ex_s']:.1f} ex/s" for k, v in trained.items())
           + f", DIN B={DIN_BATCHES[-1]} {din['ex_s']:.1f} ex/s, streaming "
@@ -2188,6 +2465,14 @@ def main() -> None:
                  + f", DIN {din['counts']['segment_sum']}, streaming DeepFM "
                  f"{stream['counts']['segment_sum']}",
          "launches": fused["segment_sum"],
+         "owner_gather": dict(
+             sp["k2"], launches=sp["counts"]["segment_sum"],
+             note="the sharded lookup's owner gather, the :154 contract's "
+                  "third caller, at one member on DeepFM's big table at "
+                  "B=16384 (E*cap ids, most of them the unused slots' "
+                  "row 0 with zero gradients); launches: "
+                  f"{SPMD_STEPS} SPMD DeepFM steps, with the small "
+                  "table's sum (2 a step)"),
          **{k: seg[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                 "bound_by", "library_ms", "shapes")}},
         {"name": "row_gather", "route": "cuda",
@@ -2202,6 +2487,12 @@ def main() -> None:
                  "at B=1024 plus Criteo big table at B=16384; the plain "
                  "version is the library call, index_select",
          "launches": din["counts"]["row_gather"],
+         "owner_gather": dict(
+             sp["s1"], launches=sp["counts"]["row_gather"],
+             note="the sharded lookup's owner gather's forward at one "
+                  "member on DeepFM's big table at B=16384; launches: "
+                  f"{SPMD_STEPS} SPMD DeepFM steps, with the small "
+                  "table's read (2 a step)"),
          "serving_launches": {name: sv["launches"]["row_gather"]
                               for name, sv in served.items()},
          **{k: gat[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -169,6 +169,16 @@ class CheckpointManager:
         dirs = self._step_dirs()
         return dirs[-1][0] if dirs else None
 
+    def leaves(self, step: int):
+        """(path, leaf) of each leaf of ``step_<step>`` in order, each
+        array read from disk only when the iteration reaches it."""
+        path = os.path.join(self.directory, f"step_{step}")
+        with open(os.path.join(path, "meta.json")) as f:
+            manifest = json.load(f)["manifest"]
+        with np.load(os.path.join(path, "arrays.npz")) as z:
+            for p, key in manifest:
+                yield p, z[key]
+
     def restore(self, template=None, step: int | None = None,
                 best: bool = False):
         """(tree of numpy arrays, step, extra) of ``best/`` (``best=True``),

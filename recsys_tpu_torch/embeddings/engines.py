@@ -11,8 +11,7 @@ gathers per step, whose backward is two segment sums.
 table, kept flat as the JAX package keeps it (``table_flat``
 ``[V_pad·(D+1)]``, so checkpoints and ``convert.py`` need no mapping) and
 read through its ``[V_pad, D+1]`` view with one `table.table_gather`: one
-row gather and one segment sum per step. Only its local path is ported;
-the sharded lookup waits for the multi-device port. The JAX engine's
+row gather and one segment sum per step. The JAX engine's
 flat-gradient ``table_gather_flat`` exists for the TPU's tiling: a view is
 free here, and the segment sum's ``[V_pad, D+1]`` gradient reaches
 ``table_flat`` through it.
@@ -23,6 +22,14 @@ per-row gather cost and lane tiling and are not carried over. What is kept
 is the ENGINE field order — small fields first, then big — because the
 first dense layer's rows and the CIN filters of a converted JAX model are
 indexed in that order.
+
+Inside the SPMD step (``parallel/spmd.py``) each engine's
+``lookup_parts_sharded`` reads a table split by rows over the mesh's model
+axis through the dedup + all-to-all exchange
+(``parallel/sharded_embedding.py``): the fused engine its one table, the
+split engine its big table only (the small one stays whole on every
+member). ``a2a_overflow`` is the host-side check of a batch against the
+exchange's capacity.
 """
 
 from __future__ import annotations
@@ -36,6 +43,8 @@ import torch
 
 from recsys_tpu_torch.core.config import EmbeddingConfig
 from recsys_tpu_torch.embeddings import table as emb_table
+from recsys_tpu_torch.parallel import sharded_embedding as SE
+from recsys_tpu_torch.parallel.collectives import Axis
 
 #: Fields with vocab ≤ this live in the small table.
 SPLIT_THRESHOLD = 2048
@@ -128,19 +137,43 @@ class FusedGatherEngine:
         """(emb [B, F, D], wide [B, F]) of [B, F] int64 field-local ids,
         differentiable in ``table_flat``."""
         del train          # the gather is the path of both
-        offsets = _on_device(
-            self._consts, self._consts_lock, ids.device,
-            lambda d: torch.as_tensor(self.offsets, dtype=torch.int64,
-                                      device=d))
-        gids = emb_table.to_global_ids(ids, offsets)
         table = params["table_flat"].view(self.v_pad, self.width)
-        rows = emb_table.table_gather(table, gids)
+        rows = emb_table.table_gather(table, self._gids(ids))
         return rows[:, :, :-1], rows[:, :, -1]
 
     def lookup_parts(self, params, ids: torch.Tensor,
                      train: bool = False) -> EmbParts:
         emb, wide = self.lookup(params, ids, train=train)
         return _parts_from_rows(emb, wide, self.field_order)
+
+    def _gids(self, ids: torch.Tensor) -> torch.Tensor:
+        offsets = _on_device(
+            self._consts, self._consts_lock, ids.device,
+            lambda d: torch.as_tensor(self.offsets, dtype=torch.int64,
+                                      device=d))
+        return emb_table.to_global_ids(ids, offsets)
+
+    def lookup_parts_sharded(self, params, ids: torch.Tensor, axis: Axis,
+                             exact: bool = False,
+                             cap_factor: float = 2.0) -> EmbParts:
+        """`lookup_parts` with ``params['table_flat']`` this member's row
+        shard, read through the dedup + all-to-all exchange over
+        ``axis``."""
+        local = params["table_flat"].view(-1, self.width)
+        rows = SE.a2a_embedding_lookup(local, self._gids(ids), axis,
+                                       exact=exact, cap_factor=cap_factor)
+        return _parts_from_rows(rows[:, :, :-1], rows[:, :, -1],
+                                self.field_order)
+
+    def a2a_overflow(self, ids, num_data: int, num_model: int,
+                     cap_factor: float = 2.0) -> int:
+        """Unique ids of a host batch ``ids`` [B, F] that would exceed the
+        exchange's per-owner capacity at ``cap_factor`` (0 == lossless),
+        worst over the batch's ``num_data`` row shards."""
+        gids = np.asarray(ids) + self.offsets[None, :]
+        shard_rows = self.v_pad // num_model
+        return max(SE.a2a_overflow(s, num_model, shard_rows, cap_factor)
+                   for s in np.array_split(gids, num_data, axis=0))
 
 
 @dataclass(frozen=True)
@@ -210,12 +243,51 @@ class SplitEngine:
         take the same path (``train`` is accepted for the JAX signature):
         the gathers are differentiable in the tables."""
         del train
+        return self._parts(params, ids,
+                           lambda name, table, gids:
+                           emb_table.table_gather(table, gids))
+
+    def lookup_parts_sharded(self, params, ids: torch.Tensor, axis: Axis,
+                             exact: bool = False,
+                             cap_factor: float = 2.0) -> EmbParts:
+        """`lookup_parts` with ``params['big']`` this member's row shard,
+        read through the dedup + all-to-all exchange over ``axis``; the
+        small table is whole on every member and read locally. Same math
+        and order as `lookup_parts`, so local and sharded outputs agree."""
+        return self._parts(params, ids, self._sharded_read(axis, exact,
+                                                           cap_factor))
+
+    def _sharded_read(self, axis: Axis, exact: bool, cap_factor: float):
+        def read(name, table, gids):
+            if name == "big":
+                return SE.a2a_embedding_lookup(table, gids, axis,
+                                               exact=exact,
+                                               cap_factor=cap_factor)
+            return emb_table.table_gather(table, gids)
+        return read
+
+    def a2a_overflow(self, ids, num_data: int, num_model: int,
+                     cap_factor: float = 2.0) -> int:
+        """As `FusedGatherEngine.a2a_overflow`; only the big fields travel
+        over the exchange in this engine."""
+        big = self._partition()[1]
+        if not big:
+            return 0
+        offsets = emb_table.field_offsets(self._sizes(big))
+        gids = np.asarray(ids)[:, big] + offsets[None, :]
+        shard_rows = emb_table.pad_rows(sum(self._sizes(big))) // num_model
+        return max(SE.a2a_overflow(s, num_model, shard_rows, cap_factor)
+                   for s in np.array_split(gids, num_data, axis=0))
+
+    def _parts(self, params, ids: torch.Tensor, read) -> EmbParts:
+        """EmbParts with each part's rows from ``read(part name, table,
+        gids)``."""
         d = self.cfg.embedding_dim
         b = ids.shape[0]
         emb_parts, wide_parts = [], []
         for name, nf, fields, offsets in self._index_tensors(ids.device):
             gids = ids.index_select(1, fields) + offsets
-            rows = emb_table.table_gather(params[name], gids)
+            rows = read(name, params[name], gids)
             emb_parts.append(rows[:, :, :d].reshape(b, nf * d))
             wide_parts.append(rows[:, :, d])
         emb_2d = torch.cat(emb_parts, dim=1)

@@ -7,10 +7,11 @@ a converted JAX tree gives the same logits and gradients
 tests/test_torch_zoo.py). Every model but ``wide`` reads its embeddings
 through the engine of ``cfg.emb_engine`` (``split`` or ``fused``).
 
-The JAX models take an ``EmbOps`` that routes their table reads to the
-sharded lookup inside ``shard_map``; the port has one device, so the models
-call the engine and `table.linear_sum` directly until the multi-device
-path is ported.
+Every model takes an ``emb_ops`` (`api.EmbOps`, `api.LOCAL_EMB_OPS` by
+default): the SPMD step (``parallel/spmd.py``) passes sharded ops, which
+route the engine's lookup through the dedup + all-to-all exchange over the
+mesh's model axis and the wide model's weights through the sharded wide
+sum.
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ from recsys_tpu_torch.core.config import (CriteoConfig, EmbeddingConfig,
                                           ModelConfig)
 from recsys_tpu_torch.embeddings import engines
 from recsys_tpu_torch.embeddings import table as emb_table
-from recsys_tpu_torch.models.api import Model, register
+from recsys_tpu_torch.models.api import (LOCAL_EMB_OPS, EmbOps, Model,
+                                          register)
 from recsys_tpu_torch.ops import interactions, nn
 
 
@@ -40,7 +42,10 @@ class _CriteoBase:
         self.offsets = emb_table.field_offsets(criteo.field_vocab_sizes)
         self.engine = engines.make_engine(emb_cfg, cfg.emb_engine,
                                           threshold=cfg.split_threshold)
-        self.meta = {"emb_width": cfg.embedding_dim + 1}
+        # 'engine' lets the SPMD drivers run the host-side capacity check
+        # (engine.a2a_overflow) before they enter the sharded path
+        self.meta = {"emb_width": cfg.embedding_dim + 1,
+                     "engine": self.engine}
         self._offsets_on: dict = {}
 
     def gids(self, batch) -> torch.Tensor:
@@ -56,7 +61,14 @@ class _CriteoBase:
         """Engine-owned tables (+ shared wide bias)."""
         return {"tables": self.engine.init(gen, device)}
 
-    def lookup_parts(self, params, batch, train: bool = False):
+    def lookup_parts(self, params, batch, emb_ops: EmbOps,
+                     train: bool = False):
+        """The engine's parts; sharded ops take the engine's dedup +
+        all-to-all lookup over their model axis."""
+        if emb_ops.sharded:
+            return self.engine.lookup_parts_sharded(
+                params["tables"], batch["ids"], emb_ops.axis,
+                exact=emb_ops.a2a_exact, cap_factor=emb_ops.a2a_cap_factor)
         return self.engine.lookup_parts(params["tables"], batch["ids"],
                                         train=train)
 
@@ -84,8 +96,9 @@ def make_fm(criteo: CriteoConfig = CriteoConfig(),
         params["final"] = nn.dense_init(gen, 2, 1, device)
         return params, {}
 
-    def apply(params, state, batch, *, train=False, gen=None):
-        parts = base.lookup_parts(params, batch, train=train)
+    def apply(params, state, batch, *, train=False, gen=None,
+              emb_ops: EmbOps = LOCAL_EMB_OPS):
+        parts = base.lookup_parts(params, batch, emb_ops, train=train)
         y_1d = torch.relu(parts.wide.sum(dim=1, keepdim=True)
                           + params["tables"]["b"])
         y_2d = interactions.fm_pairwise_from_sums(parts.emb_sum,
@@ -122,8 +135,9 @@ def make_deepfm(criteo: CriteoConfig = CriteoConfig(),
         params["final"] = nn.dense_init(gen, 3, 1, device)
         return params, {"dnn": mlp_s}
 
-    def apply(params, state, batch, *, train=False, gen=None):
-        parts = base.lookup_parts(params, batch, train=train)
+    def apply(params, state, batch, *, train=False, gen=None,
+              emb_ops: EmbOps = LOCAL_EMB_OPS):
+        parts = base.lookup_parts(params, batch, emb_ops, train=train)
         y_1d = torch.relu(parts.wide.sum(dim=1, keepdim=True)
                           + params["tables"]["b"])
         y_2d = interactions.fm_pairwise_from_sums(parts.emb_sum,
@@ -165,8 +179,9 @@ def make_dcn(criteo: CriteoConfig = CriteoConfig(),
                                         1, device)
         return params, {"dnn": mlp_s}
 
-    def apply(params, state, batch, *, train=False, gen=None):
-        parts = base.lookup_parts(params, batch, train=train)
+    def apply(params, state, batch, *, train=False, gen=None,
+              emb_ops: EmbOps = LOCAL_EMB_OPS):
+        parts = base.lookup_parts(params, batch, emb_ops, train=train)
         x0 = parts.emb_2d
         xl = interactions.cross_apply(params["cross"], x0)
         h, dnn_s = nn.mlp_apply(params["dnn"], state["dnn"], x0, train=train,
@@ -213,8 +228,9 @@ def make_xdeepfm(criteo: CriteoConfig = CriteoConfig(),
     cat_pos = np.where(base.engine.field_order >= n_cont)[0]
     cat_pos_on: dict = {}
 
-    def apply(params, state, batch, *, train=False, gen=None):
-        parts = base.lookup_parts(params, batch, train=train)
+    def apply(params, state, batch, *, train=False, gen=None,
+              emb_ops: EmbOps = LOCAL_EMB_OPS):
+        parts = base.lookup_parts(params, batch, emb_ops, train=train)
         dev = parts.wide.device
         if dev not in cat_pos_on:
             cat_pos_on[dev] = torch.as_tensor(cat_pos, device=dev)
@@ -256,8 +272,9 @@ def make_dnn(criteo: CriteoConfig = CriteoConfig(),
         params["final"] = nn.dense_init(gen, cfg.deep_layers[-1], 1, device)
         return params, {"dnn": mlp_s}
 
-    def apply(params, state, batch, *, train=False, gen=None):
-        parts = base.lookup_parts(params, batch, train=train)
+    def apply(params, state, batch, *, train=False, gen=None,
+              emb_ops: EmbOps = LOCAL_EMB_OPS):
+        parts = base.lookup_parts(params, batch, emb_ops, train=train)
         h, dnn_s = nn.mlp_apply(params["dnn"], state["dnn"], _mlp_input(parts),
                                 train=train, dropout_rate=cfg.dropout,
                                 gen=gen)
@@ -275,7 +292,8 @@ def make_dnn(criteo: CriteoConfig = CriteoConfig(),
 @register("wide")
 def make_wide(criteo: CriteoConfig = CriteoConfig(),
               cfg: ModelConfig = ModelConfig(name="wide")) -> Model:
-    """logits = Σ_f w[gid_f] + b over all fields (`table.linear_sum`).
+    """logits = Σ_f w[gid_f] + b over all fields (``emb_ops.linear``:
+    `table.linear_sum`, or the sharded wide sum in the SPMD step).
     ``meta['optimizer'] = 'ftrl'``: the reference's LinearClassifier is
     FTRL-backed, and ``optim.for_model`` honours it."""
     base = _CriteoBase(criteo, cfg)
@@ -284,8 +302,9 @@ def make_wide(criteo: CriteoConfig = CriteoConfig(),
         return {"wide": emb_table.linear_init(gen, criteo.field_vocab_sizes,
                                               device)}, {}
 
-    def apply(params, state, batch, *, train=False, gen=None):
-        logits = emb_table.linear_sum(params["wide"], base.gids(batch))
+    def apply(params, state, batch, *, train=False, gen=None,
+              emb_ops: EmbOps = LOCAL_EMB_OPS):
+        logits = emb_ops.linear(params["wide"], base.gids(batch))
         return _squeeze_logits(logits), state
 
     return Model("wide", init, apply, meta=dict(base.meta, optimizer="ftrl"))

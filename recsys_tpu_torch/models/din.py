@@ -58,7 +58,8 @@ def make_din(item_vocab: int = ITEM_VOCAB, cate_vocab: int = CATE_VOCAB,
         params["final"] = nn.dense_init(gen, cfg.mlp_layers[-1], 1, device)
         return params, {"mlp": mlp_s}
 
-    def apply(params, state, batch, *, train=False, gen=None):
+    def apply(params, state, batch, *, train=False, gen=None, emb_ops=None):
+        del emb_ops        # DIN's tables are small: always whole, as in JAX
         item_emb = emb_table.table_gather(params["item_emb"], batch["i_id"])
         cate_emb = emb_table.table_gather(params["cate_emb"], batch["i_cate"])
         hist_item = emb_table.table_gather(params["item_emb"],

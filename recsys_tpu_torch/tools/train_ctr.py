@@ -28,6 +28,17 @@ shards, 4 GiB by default) is staged on the device
 `loader.device_prefetch` into `loop.train_and_evaluate`). On the card
 each step is one CUDA-graph replay either way.
 
+Under ``torchrun --nproc_per_node=N`` (``WORLD_SIZE`` above 1;
+``--dist_init=file:///path`` or ``tcp://host:port`` is the rendezvous
+in place of torchrun's ``MASTER_ADDR``/``MASTER_PORT``) ``train``
+joins the process group (NCCL on ``cuda:LOCAL_RANK``, gloo with
+``--device=cpu``), lays the ranks out as the ``--mesh.data_axis`` ×
+``--mesh.model_axis`` mesh and trains through the streaming SPMD driver
+(`spmd_loop.train_and_evaluate_spmd_stream`): every rank streams the
+global batches of the shards and takes its rows, the tables are split
+over the model axis, and rank 0 writes the checkpoints (the whole tree,
+in the format a single-device run writes) and scalars.
+
 ``eval``, ``predict`` and ``export`` restore the latest checkpoint (fresh
 weights, with a warning, when there is none): ``eval`` prints the
 streaming metrics over up to ``eval_steps * 10`` held-out batches,
@@ -65,7 +76,7 @@ import numpy as np
 
 _TASKS = ("train", "eval", "predict", "export", "serve")
 _FLAT = ("data_dir", "export_dir", "port", "device", "synthetic_rows",
-         "hbm_data_budget", "buckets", "engine")
+         "hbm_data_budget", "buckets", "engine", "dist_init")
 _SERVE_FLAGS = ("export_dir", "port", "device", "buckets", "engine")
 
 log = logging.getLogger("recsys_tpu_torch")
@@ -184,6 +195,33 @@ def _shards(cfg, kv: dict) -> tuple[list[str], list[str]]:
     return shard_paths[:-n_eval], shard_paths[-n_eval:]
 
 
+def _train_spmd(model, cfg, kv: dict, device, train_paths, eval_batches,
+                num_steps: int) -> dict:
+    """``train`` over the world's mesh: every rank streams the global
+    batches and takes its rows of each."""
+    import torch.distributed as dist
+
+    from recsys_tpu_torch.core import mesh as mesh_lib
+    from recsys_tpu_torch.data.loader import ShardSource
+    from recsys_tpu_torch.parallel import spmd
+    from recsys_tpu_torch.train import spmd_loop
+
+    dev = mesh_lib.distributed_init(kv.get("dist_init"),
+                                    cpu=device.type == "cpu")
+    try:
+        env = mesh_lib.make_mesh(cfg.mesh, dev)
+        src = ShardSource(train_paths, cfg.train.batch_size,
+                          seed=cfg.train.seed, num_epochs=-1)
+        metrics = spmd_loop.train_and_evaluate_spmd_stream(
+            model, (spmd.local_rows(b, env) for b in src),
+            lambda: (spmd.local_rows(b, env) for b in eval_batches()),
+            cfg.train, cfg.mesh, num_steps=num_steps, env=env)
+    finally:
+        dist.destroy_process_group()
+    print(metrics, flush=True)
+    return metrics
+
+
 def _run_task(task: str, cfg, kv: dict, streaming: bool) -> dict:
     import torch
 
@@ -213,6 +251,9 @@ def _run_task(task: str, cfg, kv: dict, streaming: bool) -> dict:
                 with np.load(p) as z:
                     rows += z["label"].shape[0]
             num_steps = cfg.train.num_epochs * rows // cfg.train.batch_size
+        if int(os.environ.get("WORLD_SIZE", 1)) > 1:
+            return _train_spmd(model, cfg, kv, device, train_paths,
+                               eval_batches, num_steps)
         budget = int(kv.get("hbm_data_budget", 4 << 30))
         if streaming or sum(os.path.getsize(p)
                             for p in train_paths) >= budget:

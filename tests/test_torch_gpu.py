@@ -1176,3 +1176,121 @@ def test_a_capture_beside_another_threads_launches_counts_its_own(
         before = rg.LAUNCHES
         sv.predict(feats)                       # a replay
         assert rg.LAUNCHES - before == 5
+
+
+# ---------------------------------------------------------------------------
+# The sharded exchange at one member, over NCCL (the card's machine has one
+# card; several members are held against the JAX package on the CPU, over
+# gloo: tests/test_torch_sharded_embedding.py)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh(tmp_path_factory):
+    """(device, 1×1 mesh) of a world of one rank joined through a file
+    store; the process group is destroyed after the module's tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: NCCL runs only on the card")
+    import torch.distributed as dist
+
+    from recsys_tpu_torch.core import mesh as mesh_lib
+    from recsys_tpu_torch.core.config import MeshConfig
+
+    store = tmp_path_factory.mktemp("nccl") / "store"
+    dev = mesh_lib.distributed_init(f"file://{store}", 1, 0, timeout_s=120)
+    yield dev, mesh_lib.make_mesh(MeshConfig(), dev)
+    dist.destroy_process_group()
+
+
+def _big_table_and_ids(dev, batch=16384):
+    """DeepFM's full-width big table and the big fields' global ids of a
+    synthetic batch."""
+    ccfg = CriteoConfig()
+    model = make_model("deepfm", ccfg, ModelConfig())
+    params, _ = model.init(torch.Generator().manual_seed(0), dev)
+    engine = model.meta["engine"]
+    ids = torch.from_numpy(synthetic_criteo(batch, ccfg)["ids"]).to(
+        dev, torch.int64)
+    (_, _, fields, offsets), = [c for c in engine._index_tensors(dev)
+                                if c[0] == "big"]
+    return params["tables"]["big"], ids.index_select(1, fields) + offsets
+
+
+def test_distributed_init_picks_nccl_and_the_card(nccl_mesh):
+    import torch.distributed as dist
+
+    dev, env = nccl_mesh
+    assert dist.get_backend() == "nccl"
+    assert dev.type == "cuda" and env.device == dev
+    assert (env.num_data, env.num_model, env.d, env.m) == (1, 1, 0, 0)
+
+
+def test_a2a_lookup_at_one_member_is_bitwise_the_table_gather(nccl_mesh):
+    from recsys_tpu_torch.embeddings import table as emb_table
+    from recsys_tpu_torch.parallel import sharded_embedding as SE
+
+    dev, env = nccl_mesh
+    table, gids = _big_table_and_ids(dev)
+    before = rg.LAUNCHES
+    got = SE.a2a_embedding_lookup(table, gids, env.model, exact=True)
+    torch.cuda.synchronize()
+    assert rg.LAUNCHES == before + 1           # the owner gather: S1
+    assert torch.equal(got, emb_table.table_gather(table, gids))
+    assert torch.equal(got, SE.psum_embedding_lookup(table, gids, env.model))
+
+
+def test_a2a_lookup_gradient_at_one_member_matches_local(nccl_mesh):
+    """The table gradient through the exchange (the owner gather's
+    backward: the segment-sum kernel, K2's contract) against the local
+    gather's, within 1e-5 of the largest."""
+    from recsys_tpu_torch.embeddings import table as emb_table
+    from recsys_tpu_torch.parallel import sharded_embedding as SE
+
+    dev, env = nccl_mesh
+    table, gids = _big_table_and_ids(dev)
+    g_out = torch.randn(*gids.shape, table.shape[1], device=dev,
+                        generator=torch.Generator(dev).manual_seed(3))
+    grads = []
+    for lookup in (lambda t: SE.a2a_embedding_lookup(t, gids, env.model,
+                                                     exact=True),
+                   lambda t: emb_table.table_gather(t, gids)):
+        live = table.detach().clone().requires_grad_()
+        before = ss.LAUNCHES
+        (g,) = torch.autograd.grad((lookup(live) * g_out).sum(), live)
+        torch.cuda.synchronize()
+        assert ss.LAUNCHES == before + 1        # the kernel, not index_add_
+        grads.append(g)
+    err = float((grads[0] - grads[1]).abs().max())
+    assert err <= 1e-5 * float(grads[1].abs().max()), err
+
+
+def test_spmd_state_gathers_to_the_host_and_resumes_at_one_member(
+        nccl_mesh, tmp_path, monkeypatch):
+    """Full-width DeepFM's SPMD state over NCCL: gathered to rank 0's
+    host in pieces of 1 MiB (`spmd_loop.whole_state`, what a checkpoint
+    writes) it equals the state; written and read back by `resume_state`
+    into a state from another seed, it is the state again."""
+    from recsys_tpu_torch import convert
+    from recsys_tpu_torch.core.checkpoint import CheckpointManager
+    from recsys_tpu_torch.parallel import spmd
+    from recsys_tpu_torch.train import optim, spmd_loop
+
+    dev, env = nccl_mesh
+    monkeypatch.setattr(spmd, "GATHER_PIECE_BYTES", 1 << 20)
+    model = make_model("deepfm", CriteoConfig(), ModelConfig())
+    tx = optim.for_model(model.meta, 1e-3)
+    ts = spmd.create_spmd_state(model, env, 0, tx)
+    state = (ts.params, ts.model_state, ts.opt_state)
+    whole = spmd_loop.whole_state(ts, env)
+    want = tree_util.leaves(convert.export_params(state))
+    assert len(tree_util.leaves(whole)) == len(want)
+    for got, w in zip(tree_util.leaves(whole), want):
+        assert np.array_equal(got, w)
+    CheckpointManager(str(tmp_path)).save(7, whole)
+    other = spmd.create_spmd_state(model, env, 1, tx)
+    other = spmd_loop.resume_state(other, CheckpointManager(str(tmp_path)),
+                                   env)
+    assert int(other.step) == 7
+    for got, w in zip(tree_util.leaves((other.params, other.model_state,
+                                   other.opt_state)), tree_util.leaves(state)):
+        assert torch.equal(got, w)
