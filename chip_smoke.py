@@ -150,7 +150,29 @@ without the package beside it. On a card it
    its parse must equal the pure-Python path on the first 5,000 rows, and
    ``preprocess_tsv`` shards it (rows/s printed); ``train_ctr train
    --streaming --device=cuda`` trains 100 steps on the shards and prints
-   an eval line, and ``train_ctr eval`` runs on the checkpoint it left.
+   an eval line, and ``train_ctr eval`` runs on the checkpoint it left;
+11. the CF family, which reaches no kernel of the port's own (dense
+   matmuls, ``log_softmax``, ``topk``): an ML-20M-shaped set (136,677
+   users, 20,108 items, about 10.0M interactions, 10,000 validation and
+   10,000 test users) built as CSR from a seed; one epoch of
+   ``vae_loop.train_vae_cf`` for ``multi_vae`` (234 steps of 500, then
+   validation, checkpoint, ``best/`` and test); 30 steps timed one by one
+   (host densify, the copy, the step's device time from CUDA events, the
+   step with its loss read), users/s, 5 steps under ``torch.profiler``
+   (busy time, idle share), eval ms a batch of 500;
+   ``train_vae --device=cuda`` from the command line on the planted
+   synthetic set at 20,108 items and 6,000 users (a dense host array of
+   the generator is ~1 GB) for 5 epochs: its JSON line, ``best/`` and
+   ``scalars.jsonl``, and the best validation NDCG@100 above a random
+   ranking's of the same data; each VAE-CF model at full width, one
+   batch's loss (1e-5 relative) and every gradient (1e-4 of the leaf's
+   largest) on the card against the CPU, and one eval batch's NDCG@100 and
+   Recall@20/50 from one set of logits (1e-6) and from each device's own
+   (2e-3); CDAE at ML-100K's shape (943 x 1,682, hidden 50), 20 epochs:
+   SuccessRate@1/5/10 against a random ranking's and ms an epoch; CAVI
+   on 1M points from one initial state, the card stopping at the CPU's
+   sweep with the means within 1e-4; and no kernel launch counted in the
+   whole phase.
 
 Float32 matrix products run in full float32:
 ``torch.backends.cuda.matmul.allow_tf32 = False`` (and cuDNN's TF32 off).
@@ -2225,6 +2247,436 @@ def _report_spmd(sp: dict, card: str) -> None:
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the CF family: no kernel of the port's own lies on its path
+# ---------------------------------------------------------------------------
+
+CF_USERS, CF_ITEMS = 136_677, 20_108   # ML-20M after the VAE-CF protocol
+CF_INTERACTIONS = 10_000_000
+CF_DRAWS = 1.076                       # draws per kept interaction (dedup)
+CF_HELDOUT = 10_000                    # validation users, and test users
+CF_BATCH = 500
+CF_TIMED_STEPS = 30
+CF_PROFILED_STEPS = 5
+CF_LEARN_USERS = 6_000     # a dense [U, 20,108] float64 host array: 0.97 GB
+CF_LEARN_HELDOUT = 500
+CF_LEARN_EPOCHS = 5
+CF_LOSS_RTOL = 1e-5        # float32 sums over 20,108 items in cuBLAS's order
+CF_GRAD_TOL = 1e-4         # of each gradient leaf's largest magnitude
+CF_METRIC_TOL = 1e-6       # the metrics of one set of logits on each device
+CF_SCORE_TOL = 2e-3        # the metrics of each device's own logits
+CDAE_USERS, CDAE_ITEMS, CDAE_HIDDEN = 943, 1_682, 50     # ML-100K
+CDAE_EPOCHS = 20
+CAVI_MEANS = (-4.0, 0.0, 4.0, 9.0)
+CAVI_PER_CLUSTER = 250_000
+# the ELBO of 1M points is ~1.4e7, resolved to ~1.0 in float32; its
+# differences (float64) run 1078, 171, 30.4, 5.6: epsilon sits in a gap
+CAVI_EPS = 70.0
+CAVI_TOL = 1e-4            # means: float32 sums of 1M terms in another order
+
+
+def ml20m_shaped(seed: int):
+    """A `VaeCfData` of ML-20M's shape after the VAE-CF protocol: 136,677
+    users (116,677 training, 10,000 validation and 10,000 test users, each
+    held-out user's items split 80/20 into fold-in and held-out), 20,108
+    items and about 10.0M interactions, built from numpy as CSR directly
+    (`synthetic_interactions` would build dense [U, I] float64 arrays of
+    22 GB): log-normal per-user counts of at least 5, items drawn from a
+    Zipf-like popularity, repeats dropped."""
+    from scipy import sparse
+
+    from recsys_tpu_torch.data.movielens import VaeCfData
+
+    rng = np.random.default_rng(seed)
+    raw = np.exp(rng.normal(0.0, 1.0, CF_USERS))
+    counts = np.clip(np.round(raw * CF_INTERACTIONS * CF_DRAWS / raw.sum()),
+                     5, CF_ITEMS).astype(np.int64)
+    pop = 1.0 / (np.arange(CF_ITEMS) + 10.0) ** 0.9
+    pop = rng.permutation(pop / pop.sum())
+    rows = np.repeat(np.arange(CF_USERS, dtype=np.int64), counts)
+    keys = np.unique(rows * CF_ITEMS + rng.choice(CF_ITEMS, rows.size, p=pop))
+    rows, cols = keys // CF_ITEMS, (keys % CF_ITEMS).astype(np.int32)
+
+    def csr(mask, lo, n):
+        r = rows[mask] - lo
+        indptr = np.concatenate([[0], np.cumsum(np.bincount(r, minlength=n))])
+        return sparse.csr_matrix((np.ones(len(r), np.float32), cols[mask],
+                                  indptr), shape=(n, CF_ITEMS))
+
+    def split(lo, hi):
+        sel = (rows >= lo) & (rows < hi)
+        r = rows[sel]
+        n_u = np.bincount(r - lo, minlength=hi - lo)
+        start = np.concatenate([[0], np.cumsum(n_u)])[:-1]
+        n_held = np.where(n_u >= 5, np.maximum(1, (0.2 * n_u).astype(int)), 0)
+        order = np.lexsort((rng.random(len(r)), r))
+        rank = np.arange(len(r)) - start[r[order] - lo]
+        held = np.empty(len(r), bool)
+        held[order] = rank < n_held[r[order] - lo]
+        tr, te = sel.copy(), sel.copy()
+        tr[sel], te[sel] = ~held, held
+        return csr(tr, lo, hi - lo), csr(te, lo, hi - lo)
+
+    n_train = CF_USERS - 2 * CF_HELDOUT
+    return VaeCfData(csr(rows < n_train, 0, n_train),
+                     *split(n_train, n_train + CF_HELDOUT),
+                     *split(n_train + CF_HELDOUT, CF_USERS), CF_ITEMS)
+
+
+def _cf_steps(data, cfg, dev) -> dict:
+    """`vae_loop`'s train step on ``data``'s first batches, one step at a
+    time: host densify, the host-to-device copy, the step's device time
+    (CUDA events from its first launch to its last kernel) and the step's
+    wall time with its loss read, as the trainer reads it; then
+    ``CF_PROFILED_STEPS`` steps under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from torch.autograd import DeviceType
+
+    from recsys_tpu_torch.models import vae_cf as V
+    from recsys_tpu_torch.tools.profile_step import (_device_time_us,
+                                                     trace_numbers)
+    from recsys_tpu_torch.train import optim, vae_loop
+    from recsys_tpu_torch.train.train_state import make_generator, step_seed
+
+    (init, apply, loss_fn), vae = vae_loop.make_model(cfg, data.n_items)
+    params = init(torch.Generator().manual_seed(cfg.seed), dev)
+    opt = optim.adam(cfg.learning_rate)
+    opt_state = opt.init(params)
+    step = vae_loop.make_train_step(loss_fn, vae, opt, cfg.keep_prob)
+    gen = make_generator(cfg.seed + 1, dev)
+    order = np.random.default_rng(cfg.seed).permutation(data.train.shape[0])
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def one(i: int) -> tuple:
+        t0 = time.perf_counter()
+        xh = vae_loop.dense_rows(data.train,
+                                 order[i * CF_BATCH:(i + 1) * CF_BATCH])
+        t1 = time.perf_counter()
+        x = torch.from_numpy(xh).to(dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        gen.manual_seed(step_seed(cfg.seed + 1, i))
+        start.record()
+        loss = step(params, opt_state, x, gen,
+                    V.anneal_schedule(i, cfg.anneal_cap,
+                                      cfg.total_anneal_steps))
+        end.record()
+        _check(np.isfinite(float(loss)), f"CF step {i}: loss {float(loss)}")
+        t3 = time.perf_counter()
+        end.synchronize()
+        return ((t3 - t0) * 1e3, (t1 - t0) * 1e3, (t2 - t1) * 1e3,
+                start.elapsed_time(end))
+
+    for i in range(3):
+        one(i)
+    rec = np.array([one(i) for i in range(3, 3 + CF_TIMED_STEPS)])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(CF_PROFILED_STEPS):
+            one(100 + i)
+        torch.cuda.synchronize()
+    trace = trace_numbers(prof, CF_PROFILED_STEPS)
+    stats = {k: [float(np.median(c)), float(c.min()), float(c.max())]
+             for k, c in zip(("step_ms", "densify_ms", "copy_ms",
+                              "device_ms"), rec.T)}
+    stats["users_per_s"] = CF_BATCH / stats["step_ms"][0] * 1e3
+    stats["busy_ms"] = trace["device_busy_ms_per_step"]
+    stats["copy_busy_ms"] = sum(
+        _device_time_us(e) for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and e.key.startswith("Memcpy")
+    ) / 1e3 / CF_PROFILED_STEPS
+    stats["device_ops"] = trace["device_ops_per_step"]
+    stats["idle_share"] = 1.0 - stats["busy_ms"] / stats["step_ms"][0]
+    stats["compute_idle_share"] = 1.0 - ((stats["busy_ms"]
+                                          - stats["copy_busy_ms"])
+                                         / stats["step_ms"][0])
+    stats["top"] = trace["top"][:3]
+    evaluate = vae_loop.make_eval_fn(apply, vae, CF_BATCH, dev)
+    for _ in range(2):                         # the second call is timed
+        t0 = time.perf_counter()
+        evaluate(params, data.vad_tr, data.vad_te)
+        stats["eval_ms_per_batch"] = ((time.perf_counter() - t0) * 1e3
+                                      / (CF_HELDOUT / CF_BATCH))
+    return stats
+
+
+def _cf_card_vs_cpu(data, dev) -> dict:
+    """Each VAE-CF model at full width: one batch's loss and gradients at
+    ``train=False`` on the card against the CPU; NDCG@100 and Recall@20/50
+    of one eval batch (multi_vae), from one set of logits on both devices
+    and from each device's own."""
+    from recsys_tpu_torch.core import tree as tree_util
+    from recsys_tpu_torch.train import vae_loop
+
+    x = torch.from_numpy(vae_loop.dense_rows(data.train, np.arange(CF_BATCH)))
+    out = {}
+    for model in ("multi_dae", "logistic_vae", "multi_vae"):  # vae last
+        cfg = vae_loop.VaeTrainConfig(model=model, lam=0.01)
+        (init, apply, loss_fn), vae = vae_loop.make_model(cfg, data.n_items)
+        params = init(torch.Generator().manual_seed(3), "cpu")
+        card = tree_util.tree_map(lambda t: t.to(dev), params)
+        lc, _, gc = vae_loop.loss_and_grads(loss_fn, vae, params, x, None,
+                                            0.2, 0.5, train=False)
+        lg, _, gg = vae_loop.loss_and_grads(loss_fn, vae, card, x.to(dev),
+                                            None, 0.2, 0.5, train=False)
+        loss_err = abs(float(lg) - float(lc)) / abs(float(lc))
+        grad_err = max(float((g.cpu() - w).abs().max() / w.abs().max())
+                       for g, w in zip(tree_util.leaves(gg),
+                                       tree_util.leaves(gc)))
+        _check(loss_err <= CF_LOSS_RTOL and grad_err <= CF_GRAD_TOL,
+               f"{model} on the card vs the CPU: loss {loss_err:.2e} "
+               f"(tolerance {CF_LOSS_RTOL}), gradients {grad_err:.2e} "
+               f"({CF_GRAD_TOL})")
+        out[model] = {"loss_rel_err": loss_err, "grad_rel_err": grad_err}
+    # one eval batch: the same logits on both devices, then each device's
+    tr, te = data.vad_tr[:CF_BATCH], data.vad_te[:CF_BATCH]
+    with torch.no_grad():
+        logits = apply(params, torch.from_numpy(vae_loop.dense_rows(
+            tr, np.arange(CF_BATCH))))[0]
+    def given(z, x, train=False):              # the logits as the model's
+        return z, None
+
+    same = [vae_loop.make_eval_fn(given, True, CF_BATCH, d)(
+        logits.to(d), tr, te) for d in ("cpu", dev)]
+    own = [vae_loop.make_eval_fn(apply, True, CF_BATCH, d)(p, tr, te)
+           for d, p in (("cpu", params), (dev, card))]
+    for name, (a, b), tol in (("same logits", same, CF_METRIC_TOL),
+                              ("own logits", own, CF_SCORE_TOL)):
+        err = max(abs(a[k] - b[k]) for k in ("ndcg@100", "recall@20",
+                                             "recall@50"))
+        _check(a["eval_users"] == b["eval_users"] and err <= tol,
+               f"eval metrics, {name}, card vs CPU: {err:.2e} (tolerance "
+               f"{tol}): {a} / {b}")
+        out[f"metrics_{name.replace(' ', '_')}_err"] = err
+    out["metrics"] = own[1]
+    return out
+
+
+def _cf_learning_run(tmp: str, dev) -> dict:
+    """``train_vae --device=cuda`` on the planted synthetic set at full
+    item width (``CF_LEARN_USERS`` users: a dense [U, I] float64 host array
+    of the generator is ~1 GB), ``CF_LEARN_EPOCHS`` epochs; meanwhile the
+    same data is built here and ranked at random for the baseline."""
+    from recsys_tpu_torch.data import movielens as ML
+    from recsys_tpu_torch.train import vae_loop
+    from recsys_tpu_torch.train.summaries import read_scalars
+
+    seed = vae_loop.VaeTrainConfig().seed
+    built: list = []
+    maker = threading.Thread(target=lambda: built.append(
+        ML.preprocess_vae_cf(*ML.synthetic_interactions(
+            CF_LEARN_USERS, CF_ITEMS, seed=seed),
+            n_heldout_users=CF_LEARN_HELDOUT)), daemon=True)
+    maker.start()
+    model_dir = os.path.join(tmp, "vae_cli")
+    t0 = time.perf_counter()
+    rc, out = _run_cli("train_vae", [
+        "--device=cuda", "--model=multi_vae",
+        f"--synthetic_users={CF_LEARN_USERS}",
+        f"--synthetic_items={CF_ITEMS}",
+        f"--n_heldout_users={CF_LEARN_HELDOUT}",
+        f"--epochs={CF_LEARN_EPOCHS}", f"--batch_size={CF_BATCH}",
+        f"--model_dir={model_dir}"], timeout=600)
+    wall = time.perf_counter() - t0
+    maker.join(600)
+    _check(rc == 0 and bool(built), f"train_vae exited {rc}")
+    result = json.loads([l for l in out.splitlines()
+                         if l.startswith("{")][-1])
+    _check(set(result) == {"best_ndcg", "best_epoch", "best_step", "test"},
+           f"train_vae's JSON line: {result}")
+    scalars = read_scalars(model_dir)
+    _check(len(scalars) == CF_LEARN_EPOCHS
+           and all("ndcg@100" in s and "loss" in s for s in scalars)
+           and os.path.isfile(os.path.join(model_dir, "best", "meta.json")),
+           f"train_vae's model_dir: {sorted(os.listdir(model_dir))}")
+    data = built[0]
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def at_random(_, x, train=False):
+        return torch.rand(x.shape, generator=gen, device=dev)
+
+    rand = vae_loop.make_eval_fn(at_random, False, CF_BATCH, dev)(
+        None, data.vad_tr, data.vad_te)
+    _check(result["best_ndcg"] > rand["ndcg@100"],
+           f"best validation NDCG@100 {result['best_ndcg']:.4f} does not "
+           f"beat a random ranking's {rand['ndcg@100']:.4f}")
+    return {"result": result, "random_ndcg": rand["ndcg@100"],
+            "wall_s": wall, "items": data.n_items,
+            "train_users": data.train.shape[0],
+            "interactions": int(data.train.nnz + data.vad_tr.nnz
+                                + data.vad_te.nnz + data.test_tr.nnz
+                                + data.test_te.nnz),
+            "val_ndcg": [s["ndcg@100"] for s in scalars]}
+
+
+def _cdae_run(dev) -> dict:
+    """CDAE at ML-100K's shape on the card: SuccessRate@{1,5,10} against a
+    random ranking of the unwatched items, and the epoch's ms."""
+    from recsys_tpu_torch.data import movielens as ML
+    from recsys_tpu_torch.models import cdae
+    from recsys_tpu_torch.train import metrics as M
+
+    users, train_x, _, test_x = ML.synthetic_ml100k(CDAE_USERS, CDAE_ITEMS,
+                                                    seed=0)
+    cdae.train_cdae(train_x, users, hidden=CDAE_HIDDEN, epochs=1,
+                    device=dev)                                   # warm-up
+    t0 = time.perf_counter()
+    params, apply, losses = cdae.train_cdae(
+        train_x, users, hidden=CDAE_HIDDEN, epochs=CDAE_EPOCHS, device=dev)
+    epoch_ms = (time.perf_counter() - t0) * 1e3 / CDAE_EPOCHS
+    rng = np.random.default_rng(7)      # not the generator's seed + 1 stream
+    sr, rand = {}, {}
+    for n in (1, 5, 10):
+        sr[n] = M.success_rate_at_n(
+            cdae.predict_topn(apply, params, train_x, users, n), test_x)
+        noise = rng.random(train_x.shape) * (train_x == 0)
+        rand[n] = M.success_rate_at_n(np.argsort(noise, axis=1)[:, -n:],
+                                      test_x)
+    _check(np.isfinite(losses).all() and losses[-1] < losses[0]
+           and sr[10] > rand[10],
+           f"CDAE: losses {losses[0]:.4f} → {losses[-1]:.4f}, SR@10 "
+           f"{sr[10]:.2f} against random {rand[10]:.2f}")
+    return {"success_rate": sr, "random_success_rate": rand,
+            "epoch_ms": epoch_ms, "loss": [losses[0], losses[-1]]}
+
+
+def _cavi_run(dev) -> dict:
+    """`vi_gmm.fit_from` on the card from the CPU's initial state: the same
+    stopping sweep, the means within ``CAVI_TOL``."""
+    from recsys_tpu_torch.extras import vi_gmm
+
+    gen = torch.Generator().manual_seed(0)
+    data = vi_gmm.sample_gmm(gen, CAVI_MEANS, 1.0, CAVI_PER_CLUSTER,
+                             device="cpu")
+    state = vi_gmm.init_state(gen, data, len(CAVI_MEANS))
+    t0 = time.perf_counter()
+    cpu = vi_gmm.fit_from(data, state, epsilon=CAVI_EPS, max_iters=500)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    data, state = data.to(dev), vi_gmm.GmmState(*(t.to(dev) for t in state))
+    vi_gmm.fit_from(data, state, epsilon=CAVI_EPS, max_iters=2)   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = vi_gmm.fit_from(data, state, epsilon=CAVI_EPS, max_iters=500)
+    card_ms = (time.perf_counter() - t0) * 1e3
+    err = float((card.m.cpu() - cpu.m).abs().max())
+    _check(int(card.it) == int(cpu.it) < 500 and err <= CAVI_TOL,
+           f"CAVI: the card stopped at sweep {int(card.it)}, the CPU at "
+           f"{int(cpu.it)}; means within {err:.2e} (tolerance {CAVI_TOL})")
+    return {"sweeps": int(card.it), "means": sorted(card.m.cpu().tolist()),
+            "mean_err": err, "card_ms": card_ms, "cpu_ms": cpu_ms}
+
+
+def cf_phase(dev, wrappers: tuple, card: str) -> dict:
+    """The CF family on the card (see the module docstring, item 11).
+    ``wrappers``: the kernel wrappers' modules, whose launch counts must
+    not move."""
+    from recsys_tpu_torch.train import vae_loop
+
+    def launches():
+        return {f"{m.__name__}.{k}": v for m in wrappers
+                for k, v in vars(m).items() if k.endswith("LAUNCHES")}
+
+    t_phase = time.perf_counter()
+    before = launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        # the learning run (a subprocess on the card) while this process
+        # builds the ML-20M-shaped set on the host; nothing is timed on the
+        # card until both are done
+        learned: dict = {}
+
+        def learn():
+            try:
+                learned["out"] = _cf_learning_run(tmp, dev)
+            except BaseException as e:          # re-raised below
+                learned["err"] = e
+
+        learner = threading.Thread(target=learn, daemon=True)
+        learner.start()
+        t0 = time.perf_counter()
+        data = ml20m_shaped(seed=0)
+        build_s = time.perf_counter() - t0
+        nnz = sum(m.nnz for m in (data.train, data.vad_tr, data.vad_te,
+                                  data.test_tr, data.test_te))
+        learner.join(900)
+        if "err" in learned:
+            raise learned["err"]
+        _check("out" in learned, "the CF learning run did not finish")
+        learn = learned["out"]
+        cfg = vae_loop.VaeTrainConfig(model="multi_vae", epochs=1,
+                                      model_dir=os.path.join(tmp, "vae"))
+        t0 = time.perf_counter()
+        epoch = vae_loop.train_vae_cf(data, cfg, device=dev)
+        epoch_s = time.perf_counter() - t0
+        _check(np.isfinite(epoch["test"]["ndcg@100"])
+               and epoch["test"]["eval_users"] > 0
+               and os.path.isdir(os.path.join(cfg.model_dir, "best")),
+               f"one multi_vae epoch at ML-20M's shape: {epoch}")
+        steps = _cf_steps(data, cfg, dev)
+    vs_cpu = _cf_card_vs_cpu(data, dev)
+    cd = _cdae_run(dev)
+    cavi = _cavi_run(dev)
+    _check(launches() == before,
+           f"the CF path launched a kernel of the port's: {before} → "
+           f"{launches()}")
+    out = {"data": {"users": CF_USERS, "items": CF_ITEMS,
+                    "interactions": nnz, "train_users": data.train.shape[0],
+                    "build_s": build_s},
+           "epoch": {"wall_s": epoch_s, "steps": -(-data.train.shape[0]
+                                                   // CF_BATCH),
+                     "result": epoch},
+           "steps": steps, "learning": learn, "card_vs_cpu": vs_cpu,
+           "cdae": cd, "cavi": cavi,
+           "phase_s": time.perf_counter() - t_phase, "card": card}
+    s = steps
+    print(f"CF [{card}]: ML-20M-shaped data ({CF_USERS} users x {CF_ITEMS} "
+          f"items, {nnz} interactions, built in {build_s:.1f} s beside the "
+          "learning run); one "
+          f"multi_vae epoch of {out['epoch']['steps']} steps at batch "
+          f"{CF_BATCH} with validation, checkpoint and test in "
+          f"{epoch_s:.2f} s (test NDCG@100 {epoch['test']['ndcg@100']:.4f}); "
+          f"a step (median [min, max] of {CF_TIMED_STEPS}): "
+          f"{s['step_ms'][0]:.3f} {s['step_ms'][1:]} ms = host densify "
+          f"{s['densify_ms'][0]:.3f} + copy {s['copy_ms'][0]:.3f} + device "
+          f"{s['device_ms'][0]:.3f} (CUDA events) ms, {s['users_per_s']:.0f} "
+          f"users/s; profiled: busy {s['busy_ms']:.4f} ms a step (the "
+          f"pageable copy {s['copy_busy_ms']:.4f}), {s['device_ops']:.1f} "
+          f"device ops, idle share {s['idle_share']:.3f} ("
+          f"{s['compute_idle_share']:.3f} without the copy), top "
+          f"{s['top']}; eval "
+          f"{s['eval_ms_per_batch']:.3f} ms a batch of {CF_BATCH}",
+          flush=True)
+    print(f"CF learning run [{card}]: train_vae --device=cuda at "
+          f"{learn['items']} items, {learn['train_users']} training users, "
+          f"{learn['interactions']} interactions, {CF_LEARN_EPOCHS} epochs "
+          f"in {learn['wall_s']:.1f} s: validation NDCG@100 by epoch "
+          f"{['%.4f' % v for v in learn['val_ndcg']]}, best "
+          f"{learn['result']['best_ndcg']:.4f} (epoch "
+          f"{learn['result']['best_epoch']}) against a random ranking's "
+          f"{learn['random_ndcg']:.4f}; test {learn['result']['test']}; "
+          "card vs CPU (loss, gradients relative to the leaf's largest): "
+          + ", ".join(f"{m} {v['loss_rel_err']:.2e} / {v['grad_rel_err']:.2e}"
+                      for m, v in vs_cpu.items() if m in (
+                          "multi_dae", "multi_vae", "logistic_vae"))
+          + f"; eval metrics from one set of logits within "
+          f"{vs_cpu['metrics_same_logits_err']:.2e}, from each device's own "
+          f"{vs_cpu['metrics_own_logits_err']:.2e}; CDAE {CDAE_USERS} x "
+          f"{CDAE_ITEMS} hidden {CDAE_HIDDEN}: SuccessRate@1/5/10 "
+          + "/".join(f"{cd['success_rate'][n]:.2f}" for n in (1, 5, 10))
+          + " (random "
+          + "/".join(f"{cd['random_success_rate'][n]:.2f}" for n in (1, 5, 10))
+          + f"), {cd['epoch_ms']:.2f} ms an epoch; CAVI "
+          f"{len(CAVI_MEANS) * CAVI_PER_CLUSTER} points: {cavi['sweeps']} "
+          f"sweeps on the card as on the CPU, means "
+          f"{['%.4f' % m for m in cavi['means']]} within "
+          f"{cavi['mean_err']:.2e}, {cavi['card_ms']:.1f} ms (CPU "
+          f"{cavi['cpu_ms']:.1f}); CF phase {out['phase_s']:.1f} s",
+          flush=True)
+    print(json.dumps({"cf": out}, default=str), flush=True)
+    return out
+
+
 def main() -> None:
     spmd_only = sys.argv[1:] == ["--spmd-only"]
     if sys.argv[1:] and not spmd_only:
@@ -2420,6 +2872,7 @@ def main() -> None:
     train_cli_phase(ccfg)
     din_cli_phase()
     tsv_phase(ccfg)
+    cf_phase(dev, (cin_kernel, ss, rg, rp), card)
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
 

@@ -1,5 +1,7 @@
-"""Streaming binary-classification metrics (counterpart of the AUC /
-accuracy / logloss part of ``recsys_tpu/train/metrics.py``).
+"""Evaluation metrics (counterpart of ``recsys_tpu/train/metrics.py``):
+the streaming binary-classification metrics, then the ranking metrics of
+the CF family (NDCG@k and Recall@k on the device, SuccessRate@N and the
+normalized cross-entropy in numpy).
 
 ``tf.metrics.auc`` integrates 200 linear thresholds with the trapezoid rule;
 a 200-bin histogram of the predicted probabilities per label gives the same
@@ -74,3 +76,62 @@ def finalize_binary_metrics(state: BinaryMetricState) -> dict[str, float]:
         "logloss": float(state.loss_sum) / max(count, 1.0),
         "count": count,
     }
+
+
+# ---------------------------------------------------------------------------
+# Ranking metrics (counterpart of the VAE-CF half of
+# ``recsys_tpu/train/metrics.py``; vae_cf_train_val.py:84-118)
+# ---------------------------------------------------------------------------
+
+def ndcg_at_k(scores: torch.Tensor, heldout: torch.Tensor,
+              k: int = 100) -> torch.Tensor:
+    """NDCG@k per user, binary relevance.
+
+    ``scores``: [U, I] predicted scores with the train items already masked
+    to -inf by the caller; ``heldout``: [U, I] binary held-out matrix on
+    the same device. DCG over the top-k ranked items with 1/log2(rank+2)
+    gains; IDCG is the cumulative discount indexed at min(#heldout, k).
+    `torch.topk` may order ties (the -inf entries among them) otherwise
+    than ``lax.top_k``; that changes nothing while a user's fold-in and
+    held-out items are disjoint."""
+    _, top_idx = torch.topk(scores, k, dim=1)                 # [U, k]
+    gains = torch.gather(heldout, 1, top_idx)                 # [U, k]
+    discounts = 1.0 / torch.log2(torch.arange(
+        2, k + 2, dtype=torch.float32, device=scores.device))
+    dcg = torch.sum(gains * discounts, dim=1)
+    n_capped = torch.clamp(torch.sum(heldout, dim=1).to(torch.int64), max=k)
+    ideal_cum = torch.cat([discounts.new_zeros(1), torch.cumsum(discounts, 0)])
+    idcg = ideal_cum[n_capped]
+    return dcg / torch.clamp(idcg, min=1e-10)
+
+
+def recall_at_k(scores: torch.Tensor, heldout: torch.Tensor,
+                k: int = 20) -> torch.Tensor:
+    """Recall@k per user: |top-k ∩ heldout| / min(k, |heldout|)."""
+    _, top_idx = torch.topk(scores, k, dim=1)
+    hits = torch.sum(torch.gather(heldout, 1, top_idx), dim=1)
+    n_heldout = torch.sum(heldout, dim=1)
+    return hits / torch.clamp(torch.clamp(n_heldout, max=float(k)),
+                              min=1e-10)
+
+
+def success_rate_at_n(pred_topn: np.ndarray, true_mat: np.ndarray) -> float:
+    """CDAE SuccessRate@N (cade/metrics.py:3-10): % of users whose top-N
+    predictions intersect the true held-out set."""
+    cnt = 0
+    for i in range(pred_topn.shape[0]):
+        true_items = np.where(true_mat[i] == 1)[0]
+        if np.intersect1d(pred_topn[i], true_items).size > 0:
+            cnt += 1
+    return cnt * 100.0 / pred_topn.shape[0]
+
+
+def normalized_cross_entropy(y_true: np.ndarray, y_prob: np.ndarray) -> float:
+    """NCE (gbdt_lr.py:124-127): logloss normalized by the entropy of the
+    base rate."""
+    y_true = np.asarray(y_true, np.float64)
+    y_prob = np.clip(np.asarray(y_prob, np.float64), 1e-15, 1 - 1e-15)
+    ll = -np.mean(y_true * np.log(y_prob) + (1 - y_true) * np.log(1 - y_prob))
+    p = float(np.clip(y_true.mean(), 1e-15, 1 - 1e-15))  # degenerate base rate
+    base = -(p * np.log(p) + (1 - p) * np.log(1 - p))
+    return float(ll / base)

@@ -1294,3 +1294,150 @@ def test_spmd_state_gathers_to_the_host_and_resumes_at_one_member(
     for got, w in zip(tree_util.leaves((other.params, other.model_state,
                                    other.opt_state)), tree_util.leaves(state)):
         assert torch.equal(got, w)
+
+
+# ---------------------------------------------------------------------------
+# The CF family on the card against the CPU: no kernel of the port's own
+# lies on it (dense matmuls, log_softmax, topk, elementwise passes).
+# Tolerances: the loss 1e-5 relative; each gradient leaf within 1e-4 of its
+# largest magnitude (float32 sums over 4,096 items and 256 users in
+# cuBLAS's order); the ranking metrics on one set of scores 1e-6.
+# ---------------------------------------------------------------------------
+
+CF_ITEMS, CF_BATCH = 4096, 256
+
+
+def _cf_batch(seed, n=CF_BATCH, items=CF_ITEMS):
+    rng = np.random.default_rng(seed)
+    return (rng.random((n, items)) < 0.01).astype(np.float32)
+
+
+def _assert_grads_close(got, want, rel=1e-4):
+    for g, w in zip(tree_util.leaves(got), tree_util.leaves(want)):
+        err = float((g.cpu() - w).abs().max())
+        assert err <= rel * float(w.abs().max()) + 1e-7, err
+
+
+@pytest.mark.parametrize("model", ["multi_dae", "multi_vae", "logistic_vae"])
+def test_vae_cf_loss_and_grads_on_the_card_match_the_cpu(cuda_device, model):
+    from recsys_tpu_torch.train import vae_loop
+
+    cfg = vae_loop.VaeTrainConfig(model=model, lam=0.01)
+    (init, _, loss_fn), vae = vae_loop.make_model(cfg, CF_ITEMS)
+    params = init(torch.Generator().manual_seed(0), "cpu")
+    x = torch.from_numpy(_cf_batch(1))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        p = tree_util.tree_map(lambda t: t.to(dev), params)
+        out[str(dev)] = vae_loop.loss_and_grads(
+            loss_fn, vae, p, x.to(dev), None, 0.1, 0.5, train=False)
+    (l_cpu, a_cpu, g_cpu), (l_gpu, a_gpu, g_gpu) = out["cpu"], out["cuda"]
+    assert l_gpu.device.type == "cuda"
+    np.testing.assert_allclose(float(l_gpu), float(l_cpu), rtol=1e-5)
+    for k in a_cpu:
+        np.testing.assert_allclose(float(a_gpu[k]), float(a_cpu[k]),
+                                   rtol=1e-5)
+    _assert_grads_close(g_gpu, g_cpu)
+
+
+def test_ranking_metrics_on_the_card_match_the_cpu(cuda_device):
+    from recsys_tpu_torch.train import metrics as M
+
+    rng = np.random.default_rng(2)
+    scores = rng.standard_normal((500, 20108)).astype(np.float32)
+    fold_in = rng.random(scores.shape) < 0.004
+    heldout = ((rng.random(scores.shape) < 0.002) & ~fold_in)
+    scores[fold_in] = -np.inf
+    s, h = torch.from_numpy(scores), torch.from_numpy(
+        heldout.astype(np.float32))
+    for fn, k in ((M.ndcg_at_k, 100), (M.recall_at_k, 20),
+                  (M.recall_at_k, 50)):
+        got = fn(s.to(cuda_device), h.to(cuda_device), k=k)
+        torch.testing.assert_close(got.cpu(), fn(s, h, k=k), atol=1e-6,
+                                   rtol=0)
+
+
+def _cf_data():
+    from recsys_tpu_torch.data import movielens as ML
+
+    u, i, r = ML.synthetic_interactions(n_users=600, n_items=300, seed=3)
+    return ML.preprocess_vae_cf(u, i, r, n_heldout_users=80,
+                                rating_threshold=0.0)
+
+
+def test_vae_trainer_on_the_card_matches_the_cpu(cuda_device, tmp_path):
+    """``multi_dae`` at keep_prob 1.0 draws nothing: the card's run and the
+    CPU's agree (losses and NDCG 1e-4 relative, the same best epoch)."""
+    from recsys_tpu_torch.train import summaries, vae_loop
+
+    data = _cf_data()
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        cfg = vae_loop.VaeTrainConfig(
+            model="multi_dae", keep_prob=1.0, latent_dim=32, hidden_dim=96,
+            epochs=3, batch_size=128, eval_batch_size=64,
+            model_dir=str(tmp_path / dev))
+        runs[dev] = (vae_loop.train_vae_cf(data, cfg, device=dev),
+                     summaries.read_scalars(cfg.model_dir))
+    (r_cpu, s_cpu), (r_gpu, s_gpu) = runs["cpu"], runs["cuda"]
+    assert r_gpu["best_epoch"] == r_cpu["best_epoch"]
+    for a, b in zip(s_gpu, s_cpu):
+        np.testing.assert_allclose(a["loss"], b["loss"], rtol=1e-4)
+        np.testing.assert_allclose(a["ndcg@100"], b["ndcg@100"], rtol=1e-4)
+    np.testing.assert_allclose(r_gpu["test"]["ndcg@100"],
+                               r_cpu["test"]["ndcg@100"], rtol=1e-4)
+
+
+def test_vae_cli_trains_on_the_card(cuda_device, tmp_path):
+    """``train_vae --device=cuda``: the VAE's dropout and ε drawn on the
+    card, validation each epoch, ``best/`` restored for the test."""
+    import os
+
+    from recsys_tpu_torch.tools import train_vae
+
+    result = train_vae.main([
+        "--device=cuda", "--epochs=3", "--batch_size=100",
+        "--latent_dim=16", "--hidden_dim=48", "--synthetic_users=400",
+        "--synthetic_items=200", "--n_heldout_users=60",
+        "--eval_batch_size=64", f"--model_dir={tmp_path}/vae"])
+    assert 0 <= result["best_epoch"] < 3
+    assert np.isfinite(result["test"]["ndcg@100"])
+    assert result["test"]["eval_users"] > 0
+    assert os.path.isdir(tmp_path / "vae" / "best")
+
+
+def test_cdae_on_the_card_learns_and_ranks_as_the_cpu(cuda_device):
+    from recsys_tpu_torch.data import movielens as ML
+    from recsys_tpu_torch.models import cdae
+    from recsys_tpu_torch.train import metrics as M
+
+    users, train_x, _, test_x = ML.synthetic_ml100k(300, 200, seed=5)
+    params, apply, losses = cdae.train_cdae(
+        train_x, users, hidden=32, epochs=15, batch_size=64,
+        device=cuda_device)
+    assert tree_util.leaves(params)[0].device.type == "cuda"
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]
+    pred = cdae.predict_topn(apply, params, train_x, users, 10)
+    assert M.success_rate_at_n(pred, test_x) > 15.0
+    on_cpu = tree_util.tree_map(lambda t: t.cpu(), params)
+    cpu_pred = cdae.predict_topn(apply, on_cpu, train_x, users, 10)
+    # the same top 10, up to near-ties of the float32 scores
+    assert np.mean(np.sort(pred, 1) == np.sort(cpu_pred, 1)) > 0.99
+
+
+def test_cavi_on_the_card_stops_at_the_cpus_sweep(cuda_device):
+    """10,000 points: the ELBO (≈ 1.4e5) carries float32 sum errors of
+    ~0.1, so epsilon sits in a wide gap of its differences (5.2, then
+    0.98, in float64): the stop is the data's, not the rounding's."""
+    from recsys_tpu_torch.extras import vi_gmm as G
+
+    gen = torch.Generator().manual_seed(1)
+    data = G.sample_gmm(gen, [-4.0, 0.0, 4.0, 9.0], 1.0, 2500, device="cpu")
+    state = G.init_state(gen, data, 4)
+    cpu = G.fit_from(data, state, epsilon=2.0, max_iters=500)
+    gpu = G.fit_from(data.to(cuda_device),
+                     G.GmmState(*(t.to(cuda_device) for t in state)),
+                     epsilon=2.0, max_iters=500)
+    assert gpu.m.device.type == "cuda"
+    assert int(gpu.it) == int(cpu.it) < 500
+    torch.testing.assert_close(gpu.m.cpu(), cpu.m, atol=1e-4, rtol=0)

@@ -33,7 +33,10 @@ def test_the_scan_sees_the_package():
                 "tools/train_din.py", "models/ctr.py", "ops/reshape_probe.py",
                 "embeddings/engines.py", "train/optim.py",
                 "serve/fastsock.py", "serve/numpy_engine.py",
-                "train/summaries.py", "train/tb_events.py"):
+                "train/summaries.py", "train/tb_events.py",
+                "data/movielens.py", "models/vae_cf.py", "models/cdae.py",
+                "train/vae_loop.py", "tools/train_vae.py",
+                "extras/vi_gmm.py", "train/metrics.py"):
         assert ROOT / "recsys_tpu_torch" / mod in FILES, mod
     assert "torch" in set(_imports(ROOT / "recsys_tpu_torch" / "ops" /
                                    "cin_kernel.py"))
