@@ -172,7 +172,29 @@ without the package beside it. On a card it
    SuccessRate@1/5/10 against a random ranking's and ms an epoch; CAVI
    on 1M points from one initial state, the card stopping at the CPU's
    sweep with the means within 1e-4; and no kernel launch counted in the
-   whole phase.
+   whole phase;
+12. the convergence protocol's path: 1,048,576 rows drawn by the device
+   sampler (``data/synthetic_device.py``) against as many rows of the host
+   generator (label rate and dense mean within 0.01, each field's mean id
+   within 3% of its vocab, every id in range); the sampler K-step call
+   (``fast.make_scanned_train_step_sampler``) at full width, DeepFM on the
+   split engine, batch 16384, dropout 0.5, Adam on a cosine schedule whose
+   warm-up ends at step 20: graphed against eager from one seed, every
+   parameter, BN stat and optimizer leaf and the mean loss bitwise equal
+   after 40 steps, the graphed run launching the row gather and the
+   segment sum twice a step (counted from 0 just before it), one
+   ``cudaGraphLaunch`` a step (``torch.profiler``), its ex/s beside the
+   devgen step's on the same model in alternating pairs; then
+   ``tools/converge.py``'s DeepFM run on 5·10⁷ examples with eval on
+   262,144 rows at start row 10⁹, its AUC above that slice's linear ceiling
+   (computed on the host meanwhile) and printed beside the id-only one;
+13. the classical models on the host: FTRL-proximal on a planted
+   20,000-row Avazu-format CSV (held-out logloss below the base rate's);
+   GBDT+LR (``tools/gbdt_fe``) where scikit-learn imports, else a line that
+   says it was not run and why;
+14. ``tools/results.py`` (FM, one epoch of 65,536 rows) and
+   ``tools/bench_stream.py`` (131,072 rows) from the command line
+   (``--device=cuda``), tiny, into a temporary directory.
 
 Float32 matrix products run in full float32:
 ``torch.backends.cuda.matmul.allow_tf32 = False`` (and cuDNN's TF32 off).
@@ -481,10 +503,9 @@ def _segment_sum_bytes(n: int, w: int, rows: int) -> int:
 def _device_breakdown(fn, calls: int = 10) -> list:
     """[(device operation, ms per call, launches per call)] of ``fn`` under
     ``torch.profiler`` over ``calls`` calls, the costliest first."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from recsys_tpu_torch.tools.profile_step import _device_time_us
+    from recsys_tpu_torch.utils.profiling import device_breakdown
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -492,10 +513,8 @@ def _device_breakdown(fn, calls: int = 10) -> list:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    out = [(evt.key[:70], _device_time_us(evt) / 1e3 / calls,
-            evt.count / calls) for evt in prof.key_averages()
-           if evt.device_type == DeviceType.CUDA]
-    return sorted(out, key=lambda r: -r[1])
+    return [(r["op"][:70], r["total_ms"] / calls, r["count"] / calls)
+            for r in device_breakdown(prof, top=None)]
 
 
 def segment_sum_phase(ss, ccfg, dev) -> dict:
@@ -1894,26 +1913,15 @@ def _pipeline_rates(src, dev) -> dict:
     """Rows/s of the input pipeline with no training step behind it, over
     FED_STEPS batches after one (the shards cached in ``src`` already):
     ``ShardSource`` alone on the host, and through ``device_prefetch`` to
-    the card (the last copy waited for)."""
-    from recsys_tpu_torch.data.loader import device_prefetch
+    the card (``bench_stream.pipeline_rates``, its s2 and s3)."""
+    from recsys_tpu_torch.tools.bench_stream import pipeline_rates
 
-    rates = {}
-    for name in ("shard_source", "device_prefetch"):
-        it = iter(src) if name == "shard_source" else device_prefetch(
-            iter(src), dev)
-        rows = len(next(it)["label"]) * FED_STEPS
-        t0 = time.perf_counter()
-        for _ in range(FED_STEPS):
-            batch = next(it)
-        torch.cuda.current_stream().synchronize()
-        rates[name] = rows / (time.perf_counter() - t0)
-        it.close()
-        del batch
+    rates = pipeline_rates(src, dev, FED_STEPS)
     print(f"input pipeline alone, {FED_STEPS} batches: ShardSource "
           f"{rates['shard_source']:.0f} rows/s on the host, through "
           f"device_prefetch {rates['device_prefetch']:.0f} rows/s to the "
           "card", flush=True)
-    return rates
+    return {k: rates[k] for k in ("shard_source", "device_prefetch")}
 
 
 def din_fed_phase(train, dev) -> dict:
@@ -2334,10 +2342,10 @@ def _cf_steps(data, cfg, dev) -> dict:
     from torch.autograd import DeviceType
 
     from recsys_tpu_torch.models import vae_cf as V
-    from recsys_tpu_torch.tools.profile_step import (_device_time_us,
-                                                     trace_numbers)
+    from recsys_tpu_torch.tools.profile_step import trace_numbers
     from recsys_tpu_torch.train import optim, vae_loop
     from recsys_tpu_torch.train.train_state import make_generator, step_seed
+    from recsys_tpu_torch.utils.profiling import device_time_us
 
     (init, apply, loss_fn), vae = vae_loop.make_model(cfg, data.n_items)
     params = init(torch.Generator().manual_seed(cfg.seed), dev)
@@ -2384,7 +2392,7 @@ def _cf_steps(data, cfg, dev) -> dict:
     stats["users_per_s"] = CF_BATCH / stats["step_ms"][0] * 1e3
     stats["busy_ms"] = trace["device_busy_ms_per_step"]
     stats["copy_busy_ms"] = sum(
-        _device_time_us(e) for e in prof.key_averages()
+        device_time_us(e) for e in prof.key_averages()
         if e.device_type == DeviceType.CUDA and e.key.startswith("Memcpy")
     ) / 1e3 / CF_PROFILED_STEPS
     stats["device_ops"] = trace["device_ops_per_step"]
@@ -2677,6 +2685,270 @@ def cf_phase(dev, wrappers: tuple, card: str) -> dict:
     return out
 
 
+SAMPLER_ROWS = 1 << 20         # the sampler's marginals: rows drawn
+SAMPLER_BATCH = 16384
+SAMPLER_STEPS = 40             # graphed against eager, from one state
+SAMPLER_WARMUP = 20            # the cosine schedule's warm-up, inside
+SHORT_EXAMPLES = 50_000_000    # the short protocol run (DeepFM)
+SHORT_EVAL_ROWS = 262_144
+
+
+def converge_phase(ccfg, dev, rg, ss, card: str) -> dict:
+    """The convergence protocol's path on the card (see the module
+    docstring, item 12): the sampler's marginals, the sampler K-step call
+    graphed against eager at full width, its launches and ex/s beside the
+    devgen step's, and a short protocol run above its slice's linear
+    ceiling. → numbers of the run."""
+    from recsys_tpu_torch.core import tree
+    from recsys_tpu_torch.core.config import ModelConfig
+    from recsys_tpu_torch.data.criteo import synthetic_criteo
+    from recsys_tpu_torch.data import synthetic_device as sd
+    from recsys_tpu_torch.models.api import make_model
+    from recsys_tpu_torch.tools import converge
+    from recsys_tpu_torch.tools.profile_step import profile_call
+    from recsys_tpu_torch.train import fast, optim
+    from recsys_tpu_torch.train import train_state as TS
+
+    t_phase = time.perf_counter()
+    # the short run's ceilings on the host, beside the card's work
+    ceil: dict = {}
+
+    def ceilings():
+        try:
+            ceil["out"] = converge.ceilings(SHORT_EVAL_ROWS)
+        except BaseException as e:              # re-raised below
+            ceil["err"] = e
+
+    host = threading.Thread(target=ceilings, daemon=True)
+    host.start()
+
+    tables = sd.device_tables(sd.planted_tables(ccfg), dev)
+    sample = sd.make_device_sampler(ccfg)
+    b = sample(torch.Generator(dev).manual_seed(0), tables, SAMPLER_ROWS)
+    ref = synthetic_criteo(SAMPLER_ROWS, ccfg, start_row=999_999)
+    vocabs = np.asarray(ccfg.field_vocab_sizes)
+    dev_ids = b["ids"].double().mean(dim=0).cpu().numpy()
+    id_err = np.abs(dev_ids - ref["ids"].mean(axis=0)) / vocabs
+    marg = {"label": (float(b["label"].mean()), float(ref["label"].mean())),
+            "dense": (float(b["dense"].mean()), float(ref["dense"].mean())),
+            "max_id_mean_err_over_vocab": float(id_err.max())}
+    _check(abs(marg["label"][0] - marg["label"][1]) < 0.01
+           and abs(marg["dense"][0] - marg["dense"][1]) < 0.01
+           and bool((np.abs(dev_ids - ref["ids"].mean(axis=0))
+                     < 0.03 * vocabs + 0.5).all())
+           and bool((b["ids"].max(dim=0).values.cpu().numpy()
+                     < vocabs).all()),
+           f"the device sampler's marginals against the host generator's: "
+           f"{marg}")
+    del b, ref
+
+    model = make_model("deepfm", ccfg, ModelConfig(name="deepfm"))
+    # the schedule spans every step the sampler's state takes here
+    total = SAMPLER_STEPS + 10 + GRAPH_PAIRS * K
+    counters = {"segment_sum": ss, "row_gather": rg}
+    runs = {}
+    for mode in ("eager", "graphed"):
+        opt = optim.adam(optim.cosine_decay(6e-3, total,
+                                            warmup_steps=SAMPLER_WARMUP))
+        ts, tx = TS.create_train_state(model, 0, 6e-3, dev, opt=opt)
+        fn = fast.make_scanned_train_step_sampler(
+            model, tx, sample, SAMPLER_BATCH, graphed=mode == "graphed")
+        torch.cuda.synchronize()
+        _zero(counters)                   # the sampler path starts here
+        ts, loss = fn(ts, tables, SAMPLER_STEPS, 0)
+        float(loss)
+        counts = _read(counters)          # ... and ends here
+        runs[mode] = {"ts": ts, "fn": fn, "loss": loss, "counts": counts}
+    leaves = [tree.leaves((r["ts"].params, r["ts"].model_state,
+                           r["ts"].opt_state)) for r in runs.values()]
+    diff = max(float((x - y).abs().max()) for x, y in zip(*leaves))
+    g = runs["graphed"]
+    _check(diff <= GRAPH_TOL
+           and torch.equal(runs["eager"]["loss"], g["loss"]),
+           f"the sampler step: after {SAMPLER_STEPS} steps graphed and eager "
+           f"differ by {diff}, mean losses {float(runs['eager']['loss'])} "
+           f"and {float(g['loss'])}")
+    _check(g["counts"] == {"segment_sum": 2 * SAMPLER_STEPS,
+                           "row_gather": 2 * SAMPLER_STEPS},
+           f"the sampler step's launches {g['counts']} for {SAMPLER_STEPS} "
+           f"steps, want {2 * SAMPLER_STEPS} each")
+    g["ts"], prof = profile_call(g["fn"], g["ts"], tables, SAMPLER_STEPS)
+    _check(round(prof["graph_launches_per_step"], 6) == 1.0,
+           f"the sampler step: {prof['graph_launches_per_step']} graph "
+           "launches a step, want 1")
+
+    # ex/s of the sampler step beside the devgen step, alternating
+    data = synthetic_criteo(16 * SAMPLER_BATCH, ccfg)
+    staged = fast.stage_dataset(data, dev)
+    ts_d, tx_d = TS.create_train_state(model, 0, 6e-3, dev, opt=optim.adam(
+        optim.cosine_decay(6e-3, total, warmup_steps=SAMPLER_WARMUP)))
+    devgen = fast.make_scanned_train_step_devgen(
+        model, tx_d, len(data["label"]), SAMPLER_BATCH)
+    ts_d, loss = devgen(ts_d, staged, K, 0)            # the capture
+    float(loss)
+    done = {"sampler": SAMPLER_STEPS + 10, "devgen": K}
+    ex_s = {"sampler": [], "devgen": []}
+    for p in range(GRAPH_PAIRS):
+        for mode in (("sampler", "devgen") if p % 2 == 0
+                     else ("devgen", "sampler")):
+            t0 = time.perf_counter()
+            if mode == "sampler":
+                g["ts"], loss = g["fn"](g["ts"], tables, K, done[mode])
+            else:
+                ts_d, loss = devgen(ts_d, staged, K, done[mode])
+            float(loss)
+            ex_s[mode].append(SAMPLER_BATCH * K
+                              / (time.perf_counter() - t0))
+            done[mode] += K
+    del staged, ts_d, runs
+
+    # the short protocol run: DeepFM from the JAX run's initial weights
+    short = converge.converge_ctr("deepfm", examples=SHORT_EXAMPLES,
+                                  batch=SAMPLER_BATCH, device=dev,
+                                  eval_rows=SHORT_EVAL_ROWS)
+    host.join(600)
+    if "err" in ceil:
+        raise ceil["err"]
+    _check("out" in ceil, "the short run's ceilings did not finish")
+    lin = ceil["out"]["linear_ceiling"]["auc"]
+    ido = ceil["out"]["idonly_ceiling"]["auc"]
+    _check(short["auc"] > lin,
+           f"the short protocol run: DeepFM AUC {short['auc']} is not above "
+           f"the slice's linear ceiling {lin}")
+    out = {"marginals": marg, "max_abs_diff": diff,
+           "counts": g["counts"], "steps": SAMPLER_STEPS,
+           "graph_launches_per_step": prof["graph_launches_per_step"],
+           "launch_calls_per_step": prof["launch_calls_per_step"],
+           "busy_ms_per_step": prof["device_busy_ms_per_step"],
+           "ex_s": ex_s, "short": short,
+           "ceilings": ceil["out"], "phase_s": time.perf_counter() - t_phase,
+           "card": card}
+    print(f"converge [{card}]: the device sampler's marginals on "
+          f"{SAMPLER_ROWS} rows against the host generator's: label rate "
+          f"{marg['label'][0]:.4f} / {marg['label'][1]:.4f}, dense mean "
+          f"{marg['dense'][0]:.4f} / {marg['dense'][1]:.4f}, largest id-mean "
+          f"gap {marg['max_id_mean_err_over_vocab']:.4f} of its vocab; the "
+          f"sampler step (DeepFM, batch {SAMPLER_BATCH}, dropout 0.5, warm-up "
+          f"{SAMPLER_WARMUP} of a cosine schedule) graphed equal to eager "
+          f"after {SAMPLER_STEPS} steps (max |diff| {diff}, the same mean "
+          f"loss), launches {g['counts']}, "
+          f"{prof['graph_launches_per_step']:.1f} graph launch and "
+          f"{prof['launch_calls_per_step']:.1f} kernel launch calls a step, "
+          f"busy {prof['device_busy_ms_per_step']:.4f} ms a step; ex/s in "
+          f"alternating pairs of {K}-step calls: sampler "
+          f"{['%.0f' % x for x in ex_s['sampler']]}, devgen "
+          f"{['%.0f' % x for x in ex_s['devgen']]}; short protocol run "
+          f"(DeepFM, {short['examples']} examples): AUC {short['auc']:.4f} "
+          f"against the slice's linear ceiling {lin:.4f} and id-only "
+          f"{ido:.4f}, {short['train_examples_per_s']:.0f} ex/s; phase "
+          f"{out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+def _avazu_like_csv(path: str, n: int, seed: int = 0) -> None:
+    """An Avazu-format click log whose clicks depend on the site and app
+    (the classical tests' planted CSV)."""
+    rng = np.random.default_rng(seed)
+    site_eff = rng.normal(0, 1.2, 20)
+    app_eff = rng.normal(0, 1.2, 15)
+    with open(path, "w") as f:
+        f.write("id,click,hour,site,app,device\n")
+        for i in range(n):
+            site, app = rng.integers(0, 20), rng.integers(0, 15)
+            day = rng.integers(1, 12)
+            logit = -0.5 + site_eff[site] + app_eff[app]
+            y = int(rng.random() < 1 / (1 + np.exp(-logit)))
+            f.write(f"{i},{y},1410{day:02d}{rng.integers(0, 24):02d},"
+                    f"s{site},a{app},d{rng.integers(0, 5)}\n")
+
+
+def classical_phase() -> dict:
+    """The classical models on the card's host (see the module docstring,
+    item 13): FTRL-proximal on a planted CSV; GBDT+LR where scikit-learn
+    imports, else a line that says it was not run and why."""
+    import importlib.util
+
+    from recsys_tpu_torch.models import ftrl_lr as F
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "train.csv")
+        _avazu_like_csv(path, 20_000)
+        t0 = time.perf_counter()
+        learner, val = F.train_csv(path, epochs=2, holdafter=8, D=2 ** 18,
+                                   alpha=0.3)
+        ys = []
+        with open(path) as f:
+            next(f)
+            for line in f:
+                fields = line.split(",")
+                if int(fields[2][4:6]) > 8:
+                    ys.append(float(fields[1]))
+        base = float(np.mean(ys))
+        base_ll = -(base * np.log(base) + (1 - base) * np.log(1 - base))
+        out["ftrl"] = {"val_logloss": val, "base_logloss": base_ll,
+                       "seconds": time.perf_counter() - t0}
+    _check(np.isfinite(val) and val < base_ll,
+           f"FTRL: held-out logloss {val} against the base rate's {base_ll}")
+    if importlib.util.find_spec("sklearn") is None:
+        out["gbdt"] = "not run: scikit-learn (sklearn) does not import here"
+    else:
+        from recsys_tpu_torch.tools import gbdt_fe
+        res = gbdt_fe.main(["--synthetic_rows=2000", "--n_trees=20",
+                            "--num_leaves=15"])
+        _check(res["gbdt_lr"]["nce"] < 1.0, f"GBDT+LR: {res}")
+        out["gbdt"] = res
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"classical, on the host: FTRL on a planted 20,000-row CSV, "
+          f"held-out logloss {val:.4f} against the base rate's "
+          f"{base_ll:.4f} ({out['ftrl']['seconds']:.1f} s); GBDT+LR: "
+          + (out["gbdt"] if isinstance(out["gbdt"], str)
+             else f"NCE {out['gbdt']['gbdt_lr']['nce']:.4f}")
+          + f"; phase {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+def tools_phase() -> dict:
+    """``tools/results.py`` and ``tools/bench_stream.py`` from the command
+    line on the card, tiny, into a temporary directory (see the module
+    docstring, item 14)."""
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        code, _ = _run_cli("results", [
+            "--device=cuda", "--models=fm", "--batch=4096", "--steps=100",
+            "--rows=65536", "--din=0", "--cf=0", "--serving=0",
+            f"--workdir={tmp}/w", f"--out={tmp}/R.md"], 600)
+        _check(code == 0, f"results exited with {code}")
+        with open(f"{tmp}/R.json") as f:
+            res = json.load(f)
+        out["results_fm"] = res["ctr"][0]
+        code, _ = _run_cli("bench_stream", [
+            "--device=cuda", "--rows=131072", "--batch=8192",
+            "--train_steps=50", f"--workdir={tmp}/s", f"--out={tmp}/S.md"],
+            600)
+        _check(code == 0, f"bench_stream exited with {code}")
+        with open(f"{tmp}/S.json") as f:
+            out["bench_stream"] = json.load(f)
+    r, s = out["results_fm"], out["bench_stream"]
+    _check(r["train_examples_per_s"] > 0 and 0.5 < r["auc"] <= 1.0
+           and s["s4_stream_train_examples_per_s"] > 0
+           and r["device_label"] == s["device_label"] != "cpu",
+           f"tools: {out}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"tools from the command line [{r['device_label']}]: results, FM "
+          f"one epoch of 65,536 rows at batch 4096: AUC {r['auc']:.4f}, "
+          f"{r['train_examples_per_s']:.0f} train ex/s; bench_stream at "
+          f"131,072 rows, batch 8192: s1 {s['s1_preprocess_rows_per_s']:.0f}"
+          f" rows/s, s2 {s['s2_host_pipeline_rows_per_s']:.0f}, s3 "
+          f"{s['s3_h2d_rows_per_s']:.0f}, s4 "
+          f"{s['s4_stream_train_examples_per_s']:.0f} ex/s against devgen "
+          f"{s['devgen_examples_per_s']:.0f}; phase {out['phase_s']:.1f} s",
+          flush=True)
+    return out
+
+
 def main() -> None:
     spmd_only = sys.argv[1:] == ["--spmd-only"]
     if sys.argv[1:] and not spmd_only:
@@ -2694,13 +2966,11 @@ def main() -> None:
     from recsys_tpu_torch.ops import row_gather as rg
     from recsys_tpu_torch.ops import segment_sum as ss
     from recsys_tpu_torch.serve.export import export_servable
+    from recsys_tpu_torch.utils.profiling import card as card_of
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = card_of(torch.device("cuda", 0))
     print(card, flush=True)   # name, power limit: as nvidia-smi gives them
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
@@ -2873,6 +3143,11 @@ def main() -> None:
     din_cli_phase()
     tsv_phase(ccfg)
     cf_phase(dev, (cin_kernel, ss, rg, rp), card)
+    conv = converge_phase(ccfg, dev, rg, ss, card)
+    classical = classical_phase()
+    tools = tools_phase()
+    print(json.dumps({"converge": conv, "classical": classical,
+                      "tools": tools}, default=str), flush=True)
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
@@ -2916,8 +3191,11 @@ def main() -> None:
                  + ", ".join(f"{k} {v['counts']['segment_sum']}"
                              for k, v in trained.items())
                  + f", DIN {din['counts']['segment_sum']}, streaming DeepFM "
-                 f"{stream['counts']['segment_sum']}",
+                 f"{stream['counts']['segment_sum']}; converge_launches: "
+                 f"the sampler K-step call, DeepFM, {SAMPLER_STEPS} graphed "
+                 "steps (2 a step)",
          "launches": fused["segment_sum"],
+         "converge_launches": conv["counts"]["segment_sum"],
          "owner_gather": dict(
              sp["k2"], launches=sp["counts"]["segment_sum"],
              note="the sharded lookup's owner gather, the :154 contract's "
@@ -2938,8 +3216,11 @@ def main() -> None:
                  f"{stream['counts']['row_gather']} (2 per step plus eval); "
                  "ms: device time in a CUDA graph, DIN item table "
                  "at B=1024 plus Criteo big table at B=16384; the plain "
-                 "version is the library call, index_select",
+                 "version is the library call, index_select; "
+                 f"converge_launches: the sampler K-step call, DeepFM, "
+                 f"{SAMPLER_STEPS} graphed steps (2 a step)",
          "launches": din["counts"]["row_gather"],
+         "converge_launches": conv["counts"]["row_gather"],
          "owner_gather": dict(
              sp["s1"], launches=sp["counts"]["row_gather"],
              note="the sharded lookup's owner gather's forward at one "

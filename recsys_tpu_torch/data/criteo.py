@@ -26,6 +26,7 @@ import numpy as np
 
 from recsys_tpu_torch.core.config import CriteoConfig
 from recsys_tpu_torch.data import hashing, native
+from recsys_tpu_torch.train.metrics import roc_auc
 
 
 # ---------------------------------------------------------------------------
@@ -86,13 +87,16 @@ def parse_tsv_chunk(lines: list[str]
     return labels, cont, cat
 
 
-def compute_means(tsv_path: str) -> np.ndarray:
+def compute_means(tsv_path: str, max_rows: int | None = None) -> np.ndarray:
     """Pass 1: the mean of each continuous column over its present values
-    (the reference ETL's mean imputation)."""
+    in the first ``max_rows`` lines (all by default; the reference ETL's
+    mean imputation)."""
     sums = np.zeros(13, np.float64)
     counts = np.zeros(13, np.int64)
     with open(tsv_path) as f:
-        for line in f:
+        for i, line in enumerate(f):
+            if max_rows is not None and i >= max_rows:
+                break
             parts = line.rstrip("\n").split("\t")
             for j in range(13):
                 v = parts[1 + j] if 1 + j < len(parts) else ""
@@ -116,13 +120,18 @@ def _parse(lines: list[str], cfg: CriteoConfig):
 def preprocess_tsv(tsv_path: str, out_dir: str,
                    cfg: CriteoConfig = CriteoConfig(),
                    rows_per_shard: int = 200_000,
+                   max_rows: int | None = None,
+                   means: np.ndarray | None = None,
                    bucketize_log: bool = False) -> list[str]:
-    """TSV → ``part-r-NNNNN.npz`` shards of ``rows_per_shard`` rows (the
-    last one shorter) and ``cont_means.npy`` in ``out_dir``; → the shard
-    paths. The means of a first pass (`compute_means`) impute the missing
-    continuous values."""
+    """The first ``max_rows`` lines of a TSV (all by default) →
+    ``part-r-NNNNN.npz`` shards of ``rows_per_shard`` rows (the last one
+    shorter) and ``cont_means.npy`` in ``out_dir``; → the shard paths.
+    ``means`` impute the missing continuous values (an eval set takes the
+    training set's); by default a first pass over the same lines
+    (`compute_means`) gives them."""
     os.makedirs(out_dir, exist_ok=True)
-    means = compute_means(tsv_path)
+    if means is None:
+        means = compute_means(tsv_path, max_rows)
     np.save(os.path.join(out_dir, "cont_means.npy"), means)
     shard_paths: list[str] = []
 
@@ -137,7 +146,9 @@ def preprocess_tsv(tsv_path: str, out_dir: str,
 
     buf: list[str] = []
     with open(tsv_path) as f:
-        for line in f:
+        for i, line in enumerate(f):
+            if max_rows is not None and i >= max_rows:
+                break
             buf.append(line)
             if len(buf) >= rows_per_shard:
                 flush(buf)
@@ -228,6 +239,24 @@ def synthetic_criteo(
     if _return_prob:
         out["_true_prob"] = prob
     return out
+
+
+def synthetic_bayes_metrics(
+    num_rows: int,
+    cfg: CriteoConfig = CriteoConfig(),
+    spec: SyntheticSpec = SyntheticSpec(),
+    start_row: int = 0,
+) -> dict[str, float]:
+    """AUC and logloss of the TRUE planted probabilities on a slice: the
+    Bayes ceiling no model can beat in expectation, reported beside
+    trained metrics (the AUC exact, `metrics.roc_auc`)."""
+    d = synthetic_criteo(num_rows, cfg, spec, start_row, _return_prob=True)
+    p = np.clip(d["_true_prob"], 1e-12, 1 - 1e-12)
+    y = d["label"]
+    return {
+        "auc": roc_auc(y, p),
+        "logloss": float(-np.mean(y * np.log(p) + (1 - y) * np.log(1 - p))),
+    }
 
 
 _HEX = np.frombuffer(b"0123456789abcdef", dtype="S1")

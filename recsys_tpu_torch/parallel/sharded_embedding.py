@@ -105,6 +105,9 @@ def a2a_embedding_lookup(local_table: torch.Tensor, gids: torch.Tensor,
     b, f = gids.shape
     n = b * f
     dev = gids.device
+    if v_total >= 2 ** 31:
+        raise ValueError(f"a2a_embedding_lookup: {v_total} rows do not fit "
+                         "the exchange's int32 ids")
 
     flat = gids.reshape(-1)
     nc = -(-n // e)                       # chunk length per member
@@ -135,7 +138,9 @@ def a2a_embedding_lookup(local_table: torch.Tensor, gids: torch.Tensor,
     valid = k < (end - start)[:, None]
     send_ids = torch.where(valid, usort[idx.clamp(0, nc - 1)],
                            torch.full_like(idx, v_total))
-    recv_ids = C.all_to_all(send_ids, axis)
+    # the ids cross the wire as int32 (the JAX package's exchange: E·cap·4
+    # bytes), and are widened again for the gather
+    recv_ids = C.all_to_all(send_ids.to(torch.int32), axis).to(torch.int64)
 
     # 4. owner-side gather: S1 forward, K2 backward on the card
     safe, hit = _owned(local_table, recv_ids, axis)

@@ -215,7 +215,7 @@ def loss_and_grads(model: Model, ts: TS.TrainState, batch: dict,
     # one all-reduce over data: the gradients, the loss and the BN stats
     parts = list(grads) + [loss.detach()] + ms
     flat = torch.cat([t.reshape(-1) for t in parts])
-    dist.all_reduce(flat, group=env.data.group)
+    C.all_reduce_(flat, env.data)
     summed = [piece.view_as(t) for piece, t in
               zip(flat.split([t.numel() for t in parts]), parts)]
     n = len(grads)

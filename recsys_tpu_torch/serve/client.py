@@ -15,6 +15,7 @@ import numpy as np
 
 from recsys_tpu_torch.serve.server import (BINARY_MAGIC, GRPC_METHOD,
                                            RAW_MAGIC, encode_raw, parse_raw)
+from recsys_tpu_torch.train.metrics import roc_auc
 
 
 def features_to_instances(features: dict[str, np.ndarray]) -> list[dict]:
@@ -107,21 +108,6 @@ def grpc_predict(port: int, features: dict[str, np.ndarray]) -> np.ndarray:
     return grpc_send(make_grpc_stub(port), prepare_body(features, "json"))
 
 
-def auc(labels: np.ndarray, probs: np.ndarray) -> float:
-    """The exact ROC AUC (the Mann-Whitney statistic, ties at half)."""
-    labels = np.asarray(labels) > 0.5
-    probs = np.asarray(probs, np.float64)
-    _, inv, counts = np.unique(probs, return_inverse=True,
-                               return_counts=True)
-    # the mean rank of each distinct value, given to each of its ties
-    ends = np.cumsum(counts)
-    ranks = (ends - (counts - 1) / 2.0)[inv]
-    n_pos = int(labels.sum())
-    n_neg = len(labels) - n_pos
-    return float((ranks[labels].sum() - n_pos * (n_pos + 1) / 2.0)
-                 / (n_pos * n_neg))
-
-
 def benchmark_serving(predict_fn, features: dict[str, np.ndarray],
                       labels: np.ndarray | None = None, warmup: int = 2,
                       iters: int = 10) -> dict[str, float]:
@@ -143,5 +129,5 @@ def benchmark_serving(predict_fn, features: dict[str, np.ndarray],
         "latency_ms_p99": float(np.percentile(lat, 99) * 1e3),
     }
     if labels is not None and len(set(np.asarray(labels).tolist())) > 1:
-        out["auc"] = auc(labels, probs)
+        out["auc"] = roc_auc(labels, probs)
     return out

@@ -44,6 +44,8 @@ import statistics
 import sys
 import time
 
+from recsys_tpu_torch.utils.profiling import device_time_us
+
 MODELS = ("deepfm", "deepfm:fused", "dcn", "fm", "dnn:fused", "wide")
 WARMUP_STEPS, TIMED_STEPS, PROFILED_STEPS = 50, 50, 10
 #: name fragments of each wrapper's kernels in the profiler's trace
@@ -88,13 +90,6 @@ def parse_modes(argv: list[str]) -> tuple[tuple[str, ...], int]:
     return (("eager",) if "--eager" in argv else ("graphed",)), 1
 
 
-def _device_time_us(evt) -> float:
-    for attr in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, attr):
-            return float(getattr(evt, attr))
-    return 0.0
-
-
 def profile_call(step_fn, ts, staged, first_step: int):
     """One call of PROFILED_STEPS under torch.profiler → (ts, the
     per-step numbers of its trace)."""
@@ -122,7 +117,7 @@ def trace_numbers(prof, units: int) -> dict:
     names: dict[str, list[str]] = {k: [] for k in KERNELS}
     for evt in prof.key_averages():
         if evt.device_type == DeviceType.CUDA:
-            us = _device_time_us(evt)
+            us = device_time_us(evt)
             ops += evt.count
             busy_us += us
             sort_us += us if "RadixSort" in evt.key else 0.0

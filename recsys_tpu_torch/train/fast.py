@@ -16,6 +16,9 @@
 - ``graphed=False`` runs the same body eagerly, one kernel at a time from
   Python: on the CPU, where there are no graphs, and on the card as the
   plain version the graphed path is held against.
+- The sampler call (`make_scanned_train_step_sampler`) needs no dataset:
+  each step draws a fresh batch of the planted task on the device inside
+  the captured step (``tools/converge.py``).
 """
 
 from __future__ import annotations
@@ -151,6 +154,45 @@ def make_scanned_train_step_devgen(model: Model, tx, n_rows: int,
                       lambda: _train_static(batch_size, device), host, step,
                       (ts.rng,))
         return ts._replace(step=ts.step + k), static[1] / k
+
+    return steps
+
+
+def make_scanned_train_step_sampler(model: Model, tx, sample_fn,
+                                    batch_size: int, *,
+                                    graphed: bool | None = None):
+    """``steps(ts, tables, k, first_step) -> (ts, mean_loss)``: K optimizer
+    steps, each on a FRESH batch that ``sample_fn(gen, tables,
+    batch_size)`` draws on the device (`synthetic_device.make_device_sampler`):
+    one-pass online training on the population, with no dataset on the
+    card and nothing from the host. Step ``first_step + i`` reseeds
+    ``ts.rng`` from (``ts.seed``, that step) (`TS.reseed`), then draws its
+    batch and then its dropout masks from it, in that order; so a resumed
+    run draws what the uninterrupted run drew. ``graphed`` (default: on
+    CUDA) replays one captured step, the sampler's draws inside it, per
+    step; the graph is keyed by ``tables`` too, so other tables capture
+    anew. True off CUDA raises."""
+    body = TS.make_inplace_train_step(model, tx)
+    graph = step_graph.StepGraph("make_scanned_train_step_sampler")
+
+    def steps(ts, tables: dict, k: int, first_step: int):
+        device = _device(tables)
+
+        def host(i, static):
+            if i == 0:
+                static[0].zero_()
+            TS.reseed(ts, first_step + i)
+
+        def step(static):
+            body(ts, sample_fn(ts.rng, tables, batch_size), static[0])
+
+        static = _run(graph, graphed, device, k,
+                      (ts.params, ts.model_state, ts.opt_state, ts.rng,
+                       tables, batch_size),
+                      lambda: (torch.zeros((), dtype=torch.float32,
+                                           device=device),),
+                      host, step, (ts.rng,))
+        return ts._replace(step=ts.step + k), static[0] / k
 
     return steps
 

@@ -60,6 +60,23 @@ def update_binary_metrics(state: BinaryMetricState, logits: torch.Tensor,
         state.correct + (torch.round(probs) == labels).sum())
 
 
+def roc_auc(labels: np.ndarray, scores: np.ndarray) -> float:
+    """The exact ROC AUC of ``scores`` against {0, 1} ``labels`` on the host:
+    the Mann-Whitney statistic, ties at half (what
+    ``sklearn.metrics.roc_auc_score`` computes; scikit-learn is not needed)."""
+    labels = np.asarray(labels) > 0.5
+    scores = np.asarray(scores, np.float64)
+    _, inv, counts = np.unique(scores, return_inverse=True,
+                               return_counts=True)
+    # the mean rank of each distinct value, given to each of its ties
+    ends = np.cumsum(counts)
+    ranks = (ends - (counts - 1) / 2.0)[inv]
+    n_pos = int(labels.sum())
+    n_neg = len(labels) - n_pos
+    return float((ranks[labels].sum() - n_pos * (n_pos + 1) / 2.0)
+                 / (n_pos * n_neg))
+
+
 def finalize_binary_metrics(state: BinaryMetricState) -> dict[str, float]:
     """Trapezoidal ROC-AUC from the histograms + running means."""
     pos = state.pos_hist.detach().cpu().numpy().astype(np.float64)

@@ -13,6 +13,11 @@ tables included: rows no example touched still decay their moments and
 move, as in the reference; a lazy (row-sparse) Adam would diverge from it
 after the first step.
 
+The learning rate may be a schedule: a function ``lr(t)`` of the 1-based
+float32 step ``t``, a tensor on the device computed from ``state.count``
+(`cosine_decay`), so that a step captured once in a CUDA graph reads the
+step it replays and never the host.
+
 The states ``AdamState(count, mu, nu)`` and ``FtrlState(z, n)`` mirror the
 JAX ones (their trees are shaped like the parameters), so checkpoints and
 the converter see the same structure.
@@ -20,6 +25,7 @@ the converter see the same structure.
 
 from __future__ import annotations
 
+import math
 from typing import Any, NamedTuple
 
 import torch
@@ -38,12 +44,16 @@ class AdamState(NamedTuple):
     nu: Any
 
 
-def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
-         eps: float = 1e-8) -> Optimizer:
-    """TF-parity Adam. ``update`` works IN PLACE, under ``torch.no_grad()``:
-    it overwrites the parameter tensors, ``mu``, ``nu`` and ``count`` that it
-    is given and returns the same objects. The bias correction is computed
-    on the device from ``count``, so a step never waits for the host."""
+def adam(learning_rate, b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-8, weight_decay: float = 0.0) -> Optimizer:
+    """TF-parity Adam. ``learning_rate`` is a float or a schedule ``lr(t)``
+    of the 1-based float32 step tensor (`cosine_decay`); ``weight_decay``
+    adds decoupled (AdamW-style) decay ``lr · weight_decay · p`` with the
+    scheduled lr and the parameter before the step. ``update`` works IN
+    PLACE, under ``torch.no_grad()``: it overwrites the parameter tensors,
+    ``mu``, ``nu`` and ``count`` that it is given and returns the same
+    objects. The bias correction and the schedule are computed on the
+    device from ``count``, so a step never waits for the host."""
 
     def init(params) -> AdamState:
         leaves = tree_util.leaves(params)
@@ -58,17 +68,45 @@ def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
     def update(grads, state: AdamState, params):
         state.count.add_(1)
         t = state.count.to(torch.float32)
-        lr_t = learning_rate * torch.sqrt(1.0 - b2 ** t) / (1.0 - b1 ** t)
+        lr = learning_rate(t) if callable(learning_rate) else learning_rate
+        lr_t = lr * torch.sqrt(1.0 - b2 ** t) / (1.0 - b1 ** t)
         for p, g, m, v in zip(tree_util.leaves(params),
                               tree_util.leaves(grads),
                               tree_util.leaves(state.mu),
                               tree_util.leaves(state.nu)):
             m.mul_(b1).add_(g, alpha=1 - b1)
             v.mul_(b2).addcmul_(g, g, value=1 - b2)
+            # the decay reads p before the step's write: (p − u) − lr·wd·p
+            decay = lr * weight_decay * p if weight_decay else None
             p.sub_(lr_t * m / (v.sqrt() + eps))
+            if decay is not None:
+                p.sub_(decay)
         return params, state
 
     return Optimizer(init, update)
+
+
+def cosine_decay(peak_lr: float, total_steps: int, warmup_steps: int = 0,
+                 floor: float = 0.0):
+    """``lr(t)``: linear warm-up to ``peak_lr`` over ``warmup_steps``, then a
+    cosine decay to ``floor · peak_lr`` at ``total_steps``, as
+    ``recsys_tpu/train/optim.py`` computes it in float32. ``t`` is the
+    optimizer's float32 step tensor; the result is a tensor on its device,
+    built from ``torch.where``, ``torch.clamp`` and ``torch.cos`` only, so a
+    captured step's replays each read their own step."""
+    total = max(total_steps, 1)
+    span = max(total - warmup_steps, 1)
+    warm_div = max(warmup_steps, 1)
+
+    def lr(t: torch.Tensor) -> torch.Tensor:
+        # Python scalars enter each op as float32 operands, as the JAX
+        # package's weakly typed constants do; no tensor is made here
+        warm = t * peak_lr / warm_div
+        frac = torch.clamp((t - warmup_steps) / span, 0.0, 1.0)
+        cos = floor + (1.0 - floor) * 0.5 * (1.0 + torch.cos(math.pi * frac))
+        return torch.where(t < warmup_steps, warm, cos * peak_lr)
+
+    return lr
 
 
 class FtrlState(NamedTuple):

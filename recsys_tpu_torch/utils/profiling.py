@@ -1,0 +1,134 @@
+"""Profiling (counterpart of ``recsys_tpu/utils/profiling.py``): where a
+step's device time goes, by operation, with the place in the Python code
+that launched each operation, and the name of the card a number was taken on.
+
+`trace_step` runs a function once under ``torch.profiler`` (the CPU, and
+CUDA where the work runs on a card) with Python stacks recorded;
+`device_breakdown` sums the trace's device operations by name (on a card
+the kernels, copies and fills; on the CPU its operators' own time);
+`annotate_with_source` attaches to each the place in the port's code that
+launched it, the port's counterpart of the JAX package's HLO metadata
+(``annotate_with_hlo``); `print_breakdown` prints the table. The kernel
+timings of ``tools/profile_step.py`` and ``chip_smoke.py`` read the same
+device times (`device_time_us`).
+"""
+
+from __future__ import annotations
+
+import collections
+import os
+import subprocess
+
+import torch
+
+
+def card(device) -> str:
+    """What a measurement on ``device`` ran on: on CUDA the card's name and
+    power limit as ``nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader`` gives them, else ``cpu``."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "cpu"
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return subprocess.run(
+        ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+
+
+def device_time_us(evt) -> float:
+    """The device time of a ``key_averages()`` entry, µs (the attribute's
+    name differs between PyTorch versions)."""
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, attr):
+            return float(getattr(evt, attr))
+    return 0.0
+
+
+def trace_step(fn, *args, trace_dir: str | None = None):
+    """Run ``fn(*args)`` once under ``torch.profiler`` with Python stacks,
+    waiting for the card at the end → the profiler. With ``trace_dir``,
+    its Chrome trace is written to ``trace_dir/trace.json``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, with_stack=True) as prof:
+        fn(*args)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    if trace_dir is not None:
+        os.makedirs(trace_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+    return prof
+
+
+def device_breakdown(prof, top: int | None = 15) -> list[dict]:
+    """The ``top`` device operations of a trace by total time (all with
+    ``top=None``), each ``{"op", "total_ms", "count", "device"}``. The
+    device is the card where the trace holds CUDA work; else the CPU,
+    whose operators are summed by their own time (a parent's children
+    not counted twice)."""
+    from torch.autograd import DeviceType
+
+    averages = prof.key_averages()
+    on_card = [e for e in averages if e.device_type == DeviceType.CUDA]
+    if on_card:
+        rows = [(device_time_us(e), e.count, e.key) for e in on_card]
+        device = "cuda"
+    else:
+        rows = [(float(e.self_cpu_time_total), e.count, e.key)
+                for e in averages if e.device_type == DeviceType.CPU]
+        device = "cpu"
+    rows.sort(key=lambda r: -r[0])
+    return [{"op": key, "total_ms": us / 1e3, "count": count,
+             "device": device}
+            for us, count, key in (rows if top is None else rows[:top])]
+
+
+def _source_of(evt) -> str | None:
+    """Where ``evt`` was launched from in the port's code: the innermost
+    frame of its recorded stack in a ``recsys_tpu_torch`` file, or (where
+    the profiler records Python calls as events of their own) the
+    innermost enclosing Python function there, as ``file(line): name``."""
+    for entry in evt.stack or []:
+        if "recsys_tpu_torch" in entry:
+            return entry
+    parent = evt.cpu_parent
+    while parent is not None:
+        if getattr(parent, "is_python_function", False) and \
+                "recsys_tpu_torch" in parent.name:
+            return parent.name
+        parent = parent.cpu_parent
+    return None
+
+
+def annotate_with_source(rows: list[dict], prof) -> list[dict]:
+    """Each row of `device_breakdown` gains ``source``: the place in the
+    port's code that launched most of that operation's calls (`_source_of`
+    the operator; on a card, of the operator whose launch the kernel is
+    linked to). Operations launched outside the port's code, or from a
+    thread without Python frames (autograd's backward), get None."""
+    by_op: dict[str, collections.Counter] = collections.defaultdict(
+        collections.Counter)
+    for evt in prof.events():
+        if getattr(evt, "is_python_function", False):
+            continue
+        line = _source_of(evt)
+        if line is None:
+            continue
+        for name in [k.name for k in evt.kernels] or [evt.key]:
+            by_op[name][line] += 1
+    for row in rows:
+        lines = by_op.get(row["op"])
+        row["source"] = lines.most_common(1)[0][0] if lines else None
+    return rows
+
+
+def print_breakdown(rows: list[dict]) -> None:
+    for r in rows:
+        src = r.get("source") or ""
+        print(f"{r['total_ms']:10.3f} ms  x{r['count']:5d}  "
+              f"{r['op'][:48]:48s}  {src[:80]}")

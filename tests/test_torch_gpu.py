@@ -748,6 +748,50 @@ def test_graphed_resume_continues_the_run_bitwise(cuda_device, tmp_path):
         np.testing.assert_array_equal(split[k], whole[k], err_msg=k)
 
 
+def test_sampler_step_graphed_equals_eager_and_resumes(cuda_device):
+    """The convergence protocol's K-step call on the card: the sampler's
+    draws and dropout's inside one captured step; 3 + 4 graphed steps in
+    two calls bitwise equal to 7 eager steps in one (a cosine schedule
+    whose warm-up ends inside), with 2 row gathers and 2 segment sums a
+    step under replay."""
+    from recsys_tpu_torch.data import synthetic_device as sd
+    from recsys_tpu_torch.train import optim
+
+    model, ccfg = _graph_model("deepfm", "split")
+    tables = sd.device_tables(sd.planted_tables(ccfg), cuda_device)
+    sample = sd.make_device_sampler(ccfg)
+    out = {}
+    for graphed, calls in ((False, (7,)), (True, (3, 4))):
+        ts, tx = TS.create_train_state(
+            model, 0, 1e-2, cuda_device,
+            opt=optim.adam(optim.cosine_decay(1e-2, 7, warmup_steps=3)))
+        steps = fast.make_scanned_train_step_sampler(model, tx, sample, 512,
+                                                     graphed=graphed)
+        done, before = 0, _kernel_counts()
+        for k in calls:
+            ts, loss = steps(ts, tables, k, done)
+            done += k
+        torch.cuda.synchronize()
+        out[graphed] = (ts, _kernel_counts() - before)
+    _assert_bitwise(out[False][0], out[True][0])
+    assert list(out[True][1]) == [14, 14, 0, 0]
+
+
+def test_cosine_decay_on_the_card_is_the_cpus():
+    """The schedule a captured step reads: on the card within 2e-7 of
+    the CPU's (relative, and of the peak near 0), on the device of its
+    step tensor."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from recsys_tpu_torch.train import optim
+
+    lr = optim.cosine_decay(6e-3, 100, warmup_steps=10)
+    t = torch.arange(111, dtype=torch.float32)
+    got = lr(t.cuda())
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    torch.testing.assert_close(got.cpu(), lr(t), rtol=2e-7, atol=2e-7 * 6e-3)
+
+
 def test_graph_recaptures_for_a_new_state_or_dataset(cuda_device):
     """One graphed step function called with a new train state, then with
     another staged dataset: each call recaptures and gives what an eager

@@ -36,7 +36,13 @@ def test_the_scan_sees_the_package():
                 "train/summaries.py", "train/tb_events.py",
                 "data/movielens.py", "models/vae_cf.py", "models/cdae.py",
                 "train/vae_loop.py", "tools/train_vae.py",
-                "extras/vi_gmm.py", "train/metrics.py"):
+                "extras/vi_gmm.py", "train/metrics.py",
+                "data/synthetic_device.py", "models/ftrl_lr.py",
+                "models/gbdt_lr.py", "models/jax_init.py",
+                "core/jax_prng.py", "tools/converge.py", "tools/gbdt_fe.py",
+                "tools/converge_study.py",
+                "tools/results.py", "tools/bench_stream.py",
+                "tools/bench_scaling.py", "utils/profiling.py"):
         assert ROOT / "recsys_tpu_torch" / mod in FILES, mod
     assert "torch" in set(_imports(ROOT / "recsys_tpu_torch" / "ops" /
                                    "cin_kernel.py"))

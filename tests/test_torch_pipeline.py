@@ -205,6 +205,43 @@ def test_preprocess_tsv_is_the_jax_preprocessor(tmp_path, monkeypatch,
                                   np.load(tmp_path / "jax/cont_means.npy"))
 
 
+@pytest.mark.parametrize("max_rows,given_means", [(200, False), (None, True),
+                                                  (150, True)])
+def test_preprocess_tsv_with_max_rows_and_given_means_is_jax(
+        tmp_path, no_jax_native, max_rows, given_means):
+    """``max_rows`` (the first lines only, the means of those lines) and
+    ``means`` (an eval set imputed with the training set's means), as the
+    JAX preprocessor takes them."""
+    lines = _tsv_lines(tmp_path)
+    with open(tmp_path / "all.tsv", "w") as f:
+        f.writelines(lines)
+    means = (np.arange(1, 14, dtype=np.float32) * 2.5 if given_means
+             else None)
+    kw = dict(rows_per_shard=128, max_rows=max_rows, means=means)
+    got = criteo.preprocess_tsv(str(tmp_path / "all.tsv"),
+                                str(tmp_path / "port"), **kw)
+    want = jcriteo.preprocess_tsv(str(tmp_path / "all.tsv"),
+                                  str(tmp_path / "jax"), **kw)
+    assert [p.replace("port", "jax") for p in got] == want
+    rows = 0
+    for g, w in zip(got, want):
+        with np.load(g) as zg, np.load(w) as zw:
+            for k in zw.files:
+                np.testing.assert_array_equal(zg[k], zw[k], err_msg=k)
+            rows += len(zg["label"])
+    assert rows == (max_rows or len(lines))
+    saved = np.load(tmp_path / "port/cont_means.npy")
+    np.testing.assert_array_equal(saved,
+                                  np.load(tmp_path / "jax/cont_means.npy"))
+    if given_means:
+        np.testing.assert_array_equal(saved, means)
+    else:
+        np.testing.assert_array_equal(
+            saved, criteo.compute_means(str(tmp_path / "all.tsv"), max_rows))
+        assert not np.array_equal(
+            saved, criteo.compute_means(str(tmp_path / "all.tsv")))
+
+
 # ----------------------------------------------------------------------- demo
 
 def test_demo_is_the_jax_demo():
