@@ -55,8 +55,13 @@ without the package beside it. On a card it
    - reshape probes (``via_reshape`` and ``via_2d``, the counterparts of
      the TPU compiler probes S2 and S3): first each entry point once at
      VP = 837,632, W = 17 (the launches counted), then bitwise equal to
-     the plain version there and at a ragged length, timed as a host loop
-     and as device time in a CUDA graph beside ``torch.mul(x, 2.0)``;
+     the plain version there, at ragged lengths and at inputs 4, 8 and 12
+     bytes off alignment; the kernel's grid, block and U beside what
+     ``torch.profiler`` shows of it and of ``torch.mul(x, 2.0)``'s kernel;
+     timed as a host loop and as device time in a CUDA graph beside
+     ``torch.mul``, then in 5 interleaved rounds of plain, kernel,
+     ``torch.mul``, ``torch.mul``, kernel, plain (median, min, max), hot
+     and over 4 rotated input/output pairs;
 3. serving: full-width xDeepFM, DCN and DIN with seeded random weights,
    exported, each loaded graphed (the default on the card) and eagerly
    (``graphed=False``): ``warmup`` must capture one CUDA graph per batch
@@ -205,6 +210,7 @@ The last two lines are one JSON object of the kernels' numbers and
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import queue
@@ -241,6 +247,8 @@ TSV_ROWS = 262_144
 TSV_CHECK_ROWS = 5_000
 WIDE_LR = 4.0            # FTRL alpha on batch-mean gradients (results.py)
 PROBE_ROWS, PROBE_W = 837_632, 17
+PROBE_ROUNDS = 5         # rounds of plain, kernel, library, library, ...
+PROBE_PAIRS = 4          # rotated: 4 x 114 MB of buffers, over L2's 50 MB
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 
@@ -270,28 +278,41 @@ def _timed_pair(kern, plain, iters: int) -> tuple[float, float]:
     return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
 
 
-def _graph_ms(fn, iters: int = 100) -> float:
-    """Device time of one call of ``fn``: ``iters`` calls captured in one
-    CUDA graph and replayed, so that the host's launch cost drops out."""
+def _capture(fn, iters: int):
+    """``fn(0), fn(1), …, fn(iters - 1)`` captured in one CUDA graph, after
+    a warm-up of ``fn(0..2)`` on a side stream."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
+        for j in range(3):
+            fn(j)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
+        for j in range(iters):
+            fn(j)
+    return graph
+
+
+def _replay_ms(graph, iters: int) -> float:
+    """Device time of one of the ``iters`` calls in ``graph``: one replay to
+    warm up (what ran before leaves its traces in L2 for a while), then the
+    mean of 5."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    graph.replay()
     start.record()
     for _ in range(5):
         graph.replay()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / (5 * iters)
+
+
+def _graph_ms(fn, iters: int = 100) -> float:
+    """Device time of one call of ``fn``: ``iters`` calls captured in one
+    CUDA graph and replayed, so that the host's launch cost drops out."""
+    return _replay_ms(_capture(lambda _: fn(), iters), iters)
 
 
 def _replays_bitwise(fn) -> bool:
@@ -745,12 +766,39 @@ def row_gather_phase(rg, ccfg, dev) -> dict:
                 shapes=timed_shapes)
 
 
+def _kernel_launches(fn) -> list[dict]:
+    """Name, grid and block of each kernel that ``fn()`` launches, read from
+    a ``torch.profiler`` trace."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    events = trace.get("traceEvents", []) if isinstance(trace, dict) \
+        else trace
+    return [{"name": e.get("name", ""), "grid": e.get("args", {}).get("grid"),
+             "block": e.get("args", {}).get("block")}
+            for e in events if e.get("cat") == "kernel"]
+
+
 def reshape_probe_phase(rp, dev) -> dict:
     """The reshape probes at VP = 837,632, W = 17: each entry point once
-    (the launches counted), then bitwise against the plain version there
-    and at a ragged length, timed in the order plain, kernel, kernel,
-    plain as a host loop through the wrapper and as device time in a CUDA
-    graph, beside ``torch.mul(x, 2.0)``. → per entry point its numbers."""
+    (the launches counted), then bitwise against the plain version there,
+    at ragged lengths (n % 4 = 1, 2, 3; around one block's tile; below a
+    warp) and at inputs 4, 8 and 12 bytes off 16-byte alignment; the float4
+    path's grid, block and U, and the kernels that it and
+    ``torch.mul(x, 2.0)`` launch (``torch.profiler``); timed in the order
+    plain, kernel, kernel, plain as a host loop through the wrapper and as
+    device time in a CUDA graph beside ``torch.mul``; then in
+    `PROBE_ROUNDS` rounds of plain, kernel, library, library, kernel,
+    plain, each a CUDA graph of 100 calls, hot (the same buffers every
+    call) and rotated (`PROBE_PAIRS` input/output pairs in turn, more than
+    L2 holds). → per entry point its numbers."""
     gen = torch.Generator().manual_seed(17)
     flat = torch.randn(PROBE_ROWS * PROBE_W, generator=gen).to(dev)
     x2 = flat.view(PROBE_ROWS, PROBE_W)
@@ -763,32 +811,73 @@ def reshape_probe_phase(rp, dev) -> dict:
     _check(launches == {"flat": 1, "2d": 1},
            f"reshape probe launches {launches}, want one each")
     want = rp.reshape_probe_reference(flat, PROBE_W)
+    lib = rp._lib()
+    launch = (ctypes.c_int * 3)()
+    lib.vec_launch.argtypes = [ctypes.c_longlong, ctypes.c_void_p]
+    lib.vec_launch.restype = None
+    lib.vec_launch(flat.numel(), launch)
+    grid, block, per = list(launch)
+    tile = 4 * block * per                     # floats of one block's tile
     ragged = flat[1:1 + 1001 * PROBE_W]      # ragged and 4 bytes off
+    cases = [
+        ("flat", outs["flat"], want), ("2d", outs["2d"], want),
+        ("flat ragged", rp.via_reshape(ragged, PROBE_W),
+         rp.reshape_probe_reference(ragged, PROBE_W)),
+        ("2d ragged", rp.via_2d(flat[:1001 * PROBE_W].view(1001, PROBE_W)),
+         rp.reshape_probe_reference(flat[:1001 * PROBE_W], PROBE_W))]
+    # W = 1, so that any length makes rows: n % 4 = 1, 2, 3 on an aligned
+    # base; one tile, one float4 either side of it and a length that is not
+    # a multiple of it; below a warp; 8 and 12 bytes off alignment
+    for label, off, n in (
+            [(f"n % 4 = {r}", 0, 3 * tile + r) for r in (1, 2, 3)]
+            + [("one tile", 0, tile), ("one tile - 4", 0, tile - 4),
+               ("one tile + 4", 0, tile + 4),
+               ("5 tiles + 7", 0, 5 * tile + 7), ("below a warp", 0, 29),
+               ("8 bytes off", 2, 1001 * PROBE_W),
+               ("12 bytes off", 3, 1001 * PROBE_W)]):
+        src = flat[off:off + n]
+        ref = rp.reshape_probe_reference(src, 1)
+        cases += [(f"flat {label}", rp.via_reshape(src, 1), ref),
+                  (f"2d {label}", rp.via_2d(src.view(n, 1)), ref)]
     max_abs = 0.0
-    for label, got, ref in [
-            ("flat", outs["flat"], want), ("2d", outs["2d"], want),
-            ("flat ragged", rp.via_reshape(ragged, PROBE_W),
-             rp.reshape_probe_reference(ragged, PROBE_W)),
-            ("2d ragged", rp.via_2d(flat[:1001 * PROBE_W].view(1001,
-                                                               PROBE_W)),
-             rp.reshape_probe_reference(flat[:1001 * PROBE_W], PROBE_W))]:
+    for label, got, ref in cases:
         torch.cuda.synchronize()
         max_abs = max(max_abs, (got - ref).abs().max().item())
         _check(torch.equal(got, ref), f"reshape probe {label} differs from "
                                       "its plain version")
+    print(f"reshape probes bitwise equal to the plain version in "
+          f"{len(cases)} cases: " + ", ".join(c[0] for c in cases),
+          flush=True)
     b_ms, b_by = _bound(2 * 4 * flat.numel(), flat.numel())
     out = torch.empty_like(x2)
-    lib, res = rp._lib(), {}
-    for label, fn, src, wrapper in (
-            ("flat", "via_reshape", flat,
+    # the rotated pairs: PROBE_PAIRS inputs and outputs, used in turn
+    srcs = [flat] + [torch.randn(flat.numel(), generator=gen).to(dev)
+                     for _ in range(PROBE_PAIRS - 1)]
+    dsts = [out] + [torch.empty_like(x2) for _ in range(PROBE_PAIRS - 1)]
+
+    def entry(fn, src, dst):
+        err = getattr(lib, fn)(src.data_ptr(), dst.data_ptr(), PROBE_ROWS,
+                               PROBE_W,
+                               torch.cuda.current_stream().cuda_stream)
+        _check(err == 0, f"{fn} launch failed: {err}")
+
+    traced = {what: _kernel_launches(f) for what, f in (
+        ("kernel", lambda: entry("via_reshape", flat, out)),
+        ("torch.mul", lambda: torch.mul(x2, 2.0, out=out)))}
+    print(f"reshape probe launch: grid={grid} block={block} U={per} float4s "
+          f"a thread ({tile} floats a block) for VP={PROBE_ROWS} W={PROBE_W}"
+          "; traced: " + "; ".join(
+              f"{what}: {k['name'][:120]} grid={k['grid']} block={k['block']}"
+              for what, ks in traced.items() for k in ks), flush=True)
+    res = {}
+    for label, fn, shape, wrapper in (
+            ("flat", "via_reshape", (-1,),
              lambda: rp.via_reshape(flat, PROBE_W)),
-            ("2d", "via_2d", x2, lambda: rp.via_2d(x2))):
+            ("2d", "via_2d", (PROBE_ROWS, PROBE_W), lambda: rp.via_2d(x2))):
+        src = flat.view(shape)
 
         def kern(fn=fn, src=src):
-            err = getattr(lib, fn)(src.data_ptr(), out.data_ptr(),
-                                   PROBE_ROWS, PROBE_W,
-                                   torch.cuda.current_stream().cuda_stream)
-            _check(err == 0, f"{fn} launch failed: {err}")
+            entry(fn, src, out)
 
         def plain(src=src):
             return rp.reshape_probe_reference(src, PROBE_W)
@@ -800,15 +889,47 @@ def reshape_probe_phase(rp, dev) -> dict:
         t = [_graph_ms(f) for f in (plain, kern, kern, plain)]
         k_ms, p_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
         lib_ms = _graph_ms(library)
+        # interleaved rounds, hot and rotated
+        rounds = {}
+        for mode, pairs in (("hot", 1), ("rotated", PROBE_PAIRS)):
+            calls = {
+                "plain": lambda j, s=shape, p=pairs:
+                    rp.reshape_probe_reference(srcs[j % p].view(s), PROBE_W),
+                "kernel": lambda j, f=fn, s=shape, p=pairs: entry(
+                    f, srcs[j % p].view(s), dsts[j % p]),
+                "library": lambda j, s=shape, p=pairs: torch.mul(
+                    srcs[j % p].view(s), 2.0, out=dsts[j % p].view(s))}
+            graphs = {what: _capture(c, 100) for what, c in calls.items()}
+            times = {what: [] for what in graphs}
+            for _ in range(PROBE_ROUNDS):
+                for what in ("plain", "kernel", "library", "library",
+                             "kernel", "plain"):
+                    times[what].append(_replay_ms(graphs[what], 100))
+            rounds[mode] = {what: [float(np.median(v)), min(v), max(v)]
+                            for what, v in times.items()}
+            del graphs
+        hot = rounds["hot"]
         res[label] = {"launches": launches[label], "max_abs_err": max_abs,
-                      "ms": k_ms,
-                      "plain_ms": p_ms, "library_ms": lib_ms,
+                      "ms": hot["kernel"][0], "plain_ms": hot["plain"][0],
+                      "library_ms": hot["library"][0],
                       "bound_ms": b_ms, "bound_by": b_by,
-                      "host_ms": hk_ms, "host_plain_ms": hp_ms}
+                      "host_ms": hk_ms, "host_plain_ms": hp_ms,
+                      "median_min_max": rounds,
+                      "graph_pkkp": {"ms": k_ms, "plain_ms": p_ms,
+                                     "library_ms": lib_ms},
+                      "launch": {"grid": grid, "block": block, "U": per}}
         print(f"reshape probe {fn} VP={PROBE_ROWS} W={PROBE_W}: bitwise; "
               f"device: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
               f"torch.mul_ms={lib_ms:.4f} bound_ms={b_ms:.4f}; host loop: "
               f"wrapper_ms={hk_ms:.4f} plain_ms={hp_ms:.4f}", flush=True)
+        for mode, r in rounds.items():
+            print(f"reshape probe {fn} {mode} ({PROBE_ROUNDS} rounds of "
+                  "plain, kernel, torch.mul, torch.mul, kernel, plain; "
+                  "device ms a call, median [min, max]): " + ", ".join(
+                      f"{what} {m:.5f} [{lo:.5f}, {hi:.5f}]"
+                      for what, (m, lo, hi) in r.items())
+                  + f"; kernel <= torch.mul: "
+                  f"{r['kernel'][0] <= r['library'][0]}", flush=True)
     return res
 
 
@@ -3236,8 +3357,11 @@ def main() -> None:
          "source": "recsys_tpu_torch/csrc/reshape_probe.cu",
          "replaces": f"scratch/mosaic_reshape_test.py:{line}",
          "note": "a compiler probe no path reaches: launches from the probe "
-                 "phase's own run; ms: device time in a CUDA graph at "
-                 f"VP={PROBE_ROWS}, W={PROBE_W}; library: torch.mul(x, 2.0)",
+                 "phase's own run; ms, plain_ms, library_ms: device time a "
+                 "call in a CUDA graph of 100, the median of "
+                 f"{PROBE_ROUNDS} interleaved rounds with the same buffers "
+                 f"(median_min_max: hot and rotated) at VP={PROBE_ROWS}, "
+                 f"W={PROBE_W}; library: torch.mul(x, 2.0)",
          **probe[key]}
         for name, key, line in (("reshape_probe_flat", "flat", 18),
                                 ("reshape_probe_2d", "2d", 33))]}))

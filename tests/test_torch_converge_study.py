@@ -15,6 +15,13 @@ from recsys_tpu_torch.tools import converge_study as S
 EVAL_ROWS = 1024
 
 
+@pytest.fixture(autouse=True)
+def few_steps_per_call(monkeypatch):
+    """4 steps a call, so 256 examples at batch 64 round up to 4 steps,
+    not to the protocol's 200: each run trains at full width on the CPU."""
+    monkeypatch.setattr(converge, "STEPS_PER_CALL", 4)
+
+
 @pytest.fixture(scope="module")
 def ceilings(tmp_path_factory):
     path = tmp_path_factory.mktemp("ceil") / "ceilings.json"

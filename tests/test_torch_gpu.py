@@ -612,10 +612,27 @@ def test_servable_defaults_to_the_card(cuda_device, tmp_path):
     np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
 
 
-@pytest.mark.parametrize("vp,w", [(837_632, 17), (1001, 17), (3, 1)])
-def test_reshape_probes_equal_their_plain_version(cuda_device, vp, w):
+#: floats of one block's tile on the float4 path of csrc/reshape_probe.cu
+#: (128 threads, U = 2 float4s a thread)
+PROBE_TILE = 4 * 128 * 2
+PROBE_CASES = [                                 # (VP, W, floats off)
+    (837_632, 17, 0), (1001, 17, 0), (3, 1, 0),
+    # n % 4 = 1, 2, 3 on an aligned base: the tail of single floats
+    (3 * PROBE_TILE + 1, 1, 0), (3 * PROBE_TILE + 2, 1, 0),
+    (3 * PROBE_TILE + 3, 1, 0),
+    # one tile, one float4 either side of it, not a multiple of it
+    (PROBE_TILE, 1, 0), (PROBE_TILE - 4, 1, 0), (PROBE_TILE + 4, 1, 0),
+    (5 * PROBE_TILE + 4, 1, 0),
+    # 4, 8 and 12 bytes off 16-byte alignment: the scalar path
+    (1001, 17, 1), (1001, 17, 2), (1001, 17, 3),
+    # below a warp
+    (29, 1, 0)]
+
+
+@pytest.mark.parametrize("vp,w,shift", PROBE_CASES)
+def test_reshape_probes_equal_their_plain_version(cuda_device, vp, w, shift):
     gen = torch.Generator().manual_seed(vp)
-    flat = torch.randn(vp * w, generator=gen).to(cuda_device)
+    flat = torch.randn(vp * w + shift, generator=gen).to(cuda_device)[shift:]
     before = (rp.VIA_RESHAPE_LAUNCHES, rp.VIA_2D_LAUNCHES)
     got_flat = rp.via_reshape(flat, w)
     got_2d = rp.via_2d(flat.view(vp, w))
