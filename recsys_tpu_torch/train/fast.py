@@ -19,6 +19,12 @@
 - The sampler call (`make_scanned_train_step_sampler`) needs no dataset:
   each step draws a fresh batch of the planted task on the device inside
   the captured step (``tools/converge.py``).
+- Tracing (`profiling`): a training call is the host span
+  ``recsys.train.call``, the host's part of each step
+  ``recsys.train.host_step`` inside it; each captured training step
+  launches the mark ``begin`` first (then ``forward``, ``backward``,
+  ``optimizer`` and ``end`` from `train_state`), so a device trace splits
+  every replay into its sections. The eval call records neither.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from recsys_tpu_torch.models.api import Model
 from recsys_tpu_torch.train import metrics as M
 from recsys_tpu_torch.train import step_graph
 from recsys_tpu_torch.train import train_state as TS
+from recsys_tpu_torch.utils import profiling
 
 
 def stage_dataset(data: dict[str, np.ndarray], device) -> dict:
@@ -55,8 +62,8 @@ def _device(data: dict) -> torch.device:
     return next(iter(data.values())).device
 
 
-def _run(graph: step_graph.StepGraph, graphed: bool | None, device, k: int,
-         held, new_static, host, step, generators=()):
+def _loop(graph: step_graph.StepGraph, graphed: bool | None, device, k: int,
+          held, new_static, host, step, generators=()):
     """K steps of ``step(static)``; → the static tensors after them.
 
     ``new_static()`` makes the tensors the step reads and writes besides
@@ -84,6 +91,19 @@ def _run(graph: step_graph.StepGraph, graphed: bool | None, device, k: int,
     return static
 
 
+def _run(graph: step_graph.StepGraph, graphed: bool | None, device, k: int,
+         held, new_static, host, step, generators=()):
+    """`_loop` for a training call: the call is the host span
+    ``recsys.train.call``, each ``host`` in it ``recsys.train.host_step``."""
+    def host_step(i, static):
+        with profiling.span("recsys.train.host_step"):
+            host(i, static)
+
+    with profiling.span("recsys.train.call"):
+        return _loop(graph, graphed, device, k, held, new_static, host_step,
+                     step, generators)
+
+
 def _train_static(batch_size: int, device):
     """(index buffer, loss sum) of a train step."""
     return (torch.empty((batch_size,), dtype=torch.int64, device=device),
@@ -109,6 +129,7 @@ def make_scanned_train_step(model: Model, tx, *, graphed: bool | None = None):
             static[0].copy_(idx[i])
 
         def step(static):
+            profiling.mark("begin", static[0])
             body(ts, _take(data, static[0]), static[1])
 
         # the key holds the index buffer's width: a new width captures anew
@@ -146,6 +167,7 @@ def make_scanned_train_step_devgen(model: Model, tx, n_rows: int,
 
         def step(static):
             idx, loss_sum = static
+            profiling.mark("begin", idx)
             idx.random_(0, n_rows, generator=ts.rng)   # = torch.randint
             body(ts, _take(data, idx), loss_sum)
 
@@ -184,6 +206,7 @@ def make_scanned_train_step_sampler(model: Model, tx, sample_fn,
             TS.reseed(ts, first_step + i)
 
         def step(static):
+            profiling.mark("begin", static[0])
             body(ts, sample_fn(ts.rng, tables, batch_size), static[0])
 
         static = _run(graph, graphed, device, k,
@@ -234,6 +257,7 @@ def make_fed_train_step(model: Model, tx, *, graphed: bool | None = None):
             TS.reseed(ts, step_idx)
 
         def run(static):
+            profiling.mark("begin", static[0])
             static[0].zero_()
             body(ts, static[1], static[0])
 
@@ -278,10 +302,10 @@ def make_scanned_eval(model: Model, *, graphed: bool | None = None):
             for dst, src in zip(state, new):
                 dst.copy_(src)
 
-        static = _run(graph, graphed, device, k,
-                      (params, model_state, data, b,
-                       [tuple(t.shape) for t in metric_state]),
-                      new_static, host, step)
+        static = _loop(graph, graphed, device, k,
+                       (params, model_state, data, b,
+                        [tuple(t.shape) for t in metric_state]),
+                       new_static, host, step)
         return M.BinaryMetricState(*(t.clone() for t in static[1]))
 
     return eval_steps

@@ -8,10 +8,13 @@ card. Captured once, the step replays as one ``cudaGraphLaunch``.
 
 The graph holds one step, not K: the loops reseed the train state's
 generator from (seed, step) on the host before every step
-(`train_state.reseed`), which launches nothing and cannot happen inside a
-graph. The generator is registered with the graph, so each replay reads
-the generator's current seed and offset. A replay after ``reseed(ts, s)``
-therefore draws what the eager step ``s`` draws.
+(`train_state.reseed`), which cannot happen inside a graph. The generator
+is registered with the graph, so each replay reads the generator's
+current seed and offset: before its launch, the replay writes them into
+the graph's copies on the card with two fills on the current stream,
+outside the graph (three host launches a step with the graph's own). A
+replay after ``reseed(ts, s)`` therefore draws what the eager step ``s``
+draws.
 
 `StepGraph` keeps what the capture needs:
 

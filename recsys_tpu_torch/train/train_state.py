@@ -7,7 +7,10 @@ tables' gradients come from `table.table_gather`'s backward, the segment-sum
 kernel on the card), and the in-place update of the optimizer the model
 declares (`optim.for_model`: TF-parity Adam, FTRL for the wide model). Parameters are plain tensors that do not require grad between
 steps: each step differentiates through detached aliases of them, so eval
-and serving never build a graph.
+and serving never build a graph. Captured into a CUDA graph, the step
+launches the marks ``forward``, ``backward``, ``optimizer`` and ``end`` at
+its section boundaries (`profiling.mark`; the K-step calls of `fast`
+launch ``begin``).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from recsys_tpu_torch.core import tree as tree_util
 from recsys_tpu_torch.models.api import Model
 from recsys_tpu_torch.train import metrics as M
 from recsys_tpu_torch.train import optim
+from recsys_tpu_torch.utils import profiling
 
 
 class TrainState(NamedTuple):
@@ -56,8 +60,9 @@ def reseed(ts: "TrainState", step: int) -> None:
     """Seed ``ts.rng`` for step ``step`` (the host's count of steps taken),
     so that the step's batch indices and dropout masks depend on (seed,
     step) only and a resumed run draws what the uninterrupted run drew.
-    ``manual_seed`` sets the generator's state on the host and launches
-    nothing."""
+    ``manual_seed`` sets the generator's seed and offset on the host. A
+    CUDA graph that registered the generator copies them to the card at
+    each replay, with two fills outside the graph (`step_graph`)."""
     ts.rng.manual_seed(step_seed(ts.seed, step))
 
 
@@ -97,9 +102,11 @@ def loss_and_grads(model: Model, params, model_state, batch,
     ``jax.grad`` gives). Differentiates through detached aliases, so
     ``params`` need not (and should not) require grad."""
     live = [p.detach().requires_grad_() for p in tree_util.leaves(params)]
+    profiling.mark("forward", live[0])
     logits, new_ms = model.apply(tree_util.fill_like(params, live),
                                  model_state, batch, train=True, gen=gen)
     loss = sigmoid_ce(logits, batch["label"])
+    profiling.mark("backward", loss)
     grads = torch.autograd.grad(loss, live, allow_unused=True,
                                 materialize_grads=True)
     return (loss.detach(), tree_util.tree_map(torch.Tensor.detach, new_ms),
@@ -133,12 +140,14 @@ def make_inplace_train_step(model: Model, tx: optim.Optimizer):
     def body(ts: TrainState, batch, loss_sum: torch.Tensor) -> None:
         loss, new_ms, grads = loss_and_grads(model, ts.params,
                                              ts.model_state, batch, ts.rng)
+        profiling.mark("optimizer", loss_sum)
         tx.update(grads, ts.opt_state, ts.params)
         with torch.no_grad():
             for dst, src in zip(tree_util.leaves(ts.model_state),
                                 tree_util.leaves(new_ms), strict=True):
                 dst.copy_(src)
             loss_sum.add_(loss)
+        profiling.mark("end", loss_sum)
 
     return body
 

@@ -11,15 +11,74 @@ launched it, the port's counterpart of the JAX package's HLO metadata
 (``annotate_with_hlo``); `print_breakdown` prints the table. The kernel
 timings of ``tools/profile_step.py`` and ``chip_smoke.py`` read the same
 device times (`device_time_us`).
+
+The training path records into whatever profiler is on:
+
+- `span`: a host span on the profiler's clock (``recsys.train.call`` around
+  a K-step call, ``recsys.train.host_step`` around the host's part of each
+  step);
+- `mark`: a named kernel that does nothing (``csrc/step_marks.cu``),
+  launched at each section boundary of a captured training step, `MARKS`.
+  It is a node of the step's graph, so every replay runs it: in a device
+  trace the marks cut each replayed step into its input, forward, backward
+  and optimizer sections, which no host code can do. An eager step
+  launches none.
 """
 
 from __future__ import annotations
 
 import collections
+import ctypes
 import os
 import subprocess
 
 import torch
+from torch._C._profiler import _RecordFunctionFast
+
+from recsys_tpu_torch.ops import cuda_build
+
+#: the section boundaries of a training step, in order; mark ``m`` is the
+#: kernel ``recsys_mark_<m>``
+MARKS = ("begin", "forward", "backward", "optimizer", "end")
+MARK_SOURCE = cuda_build.source("step_marks.cu")
+
+
+def span(name: str):
+    """``with span(name):`` records a host span ``name`` (``recsys.`` and a
+    dotted path) into the profiler that is on, and costs a check when none
+    is. Its scope is FUNCTION, as an operator's: the profiler keeps it on
+    the host's track and mirrors nothing of it onto the card's, where a
+    ``torch.profiler.record_function`` range would stand as a device
+    operation over every kernel it encloses."""
+    return _RecordFunctionFast(name)
+
+
+def _mark_lib() -> ctypes.CDLL:
+    lib = cuda_build.load(MARK_SOURCE)
+    if lib.recsys_mark.argtypes is None:
+        lib.recsys_mark.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        lib.recsys_mark.restype = ctypes.c_int
+    return lib
+
+
+def mark(name: str, like: torch.Tensor) -> None:
+    """Launch the mark ``name`` (one of `MARKS`) into the graph that the
+    current stream of ``like``'s device is capturing: one block of one
+    thread that does nothing, named ``recsys_mark_<name>`` in a device
+    trace, which every replay of the graph runs. Outside a capture the
+    mark launches nothing (an eager step's sections show in the host's
+    trace, where a launch would cost each step); on CUDA it builds and
+    loads the marks' library, as the warm-up step before a capture does.
+    On a tensor that is not on CUDA, nothing."""
+    if like.device.type != "cuda":
+        return
+    lib = _mark_lib()
+    with torch.cuda.device(like.device):
+        if not torch.cuda.is_current_stream_capturing():
+            return
+        stream = torch.cuda.current_stream(like.device).cuda_stream
+        err = lib.recsys_mark(MARKS.index(name), stream)
+    cuda_build.check(lib, err, f"recsys_mark_{name}")
 
 
 def card(device) -> str:

@@ -13,6 +13,7 @@ Tolerance 1e-4 absolute and relative unless a test says otherwise: float32
 sums of up to 1521 terms, taken in another order than cuBLAS takes them.
 """
 
+import collections
 import threading
 import time
 
@@ -733,6 +734,103 @@ def test_graphed_launch_counts_are_reads_times_steps(cuda_device, name,
         torch.cuda.synchronize()
         assert list(_kernel_counts() - before) == [reads * k, reads * k,
                                                    cin * k, cin * k]
+
+
+def _device_kernels(prof) -> list:
+    """The names of a profile's device operations, in start order."""
+    from torch.autograd import DeviceType
+
+    return [e.name for e in sorted(prof.events(),
+                                   key=lambda e: e.time_range.start)
+            if e.device_type == DeviceType.CUDA]
+
+
+def test_the_step_marks_build_and_launch(cuda_device):
+    """``csrc/step_marks.cu`` builds and loads. Outside a capture a mark
+    launches nothing; captured, the five marks are nodes of the graph, run
+    in order by every replay; an unknown mark number is refused."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from recsys_tpu_torch.ops import cuda_build
+    from recsys_tpu_torch.utils import profiling
+
+    x = torch.zeros(1, device=cuda_device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for name in profiling.MARKS:
+            profiling.mark(name, x)
+        torch.cuda.synchronize()
+    assert not [n for n in _device_kernels(prof) if "recsys_mark" in n]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=torch.cuda.Stream(cuda_device)):
+        for name in profiling.MARKS:
+            profiling.mark(name, x)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        graph.replay()
+        torch.cuda.synchronize()
+    assert _device_kernels(prof) == [f"recsys_mark_{m}"
+                                     for m in profiling.MARKS] * 2
+    lib = profiling._mark_lib()
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        cuda_build.check(lib, lib.recsys_mark(len(profiling.MARKS), stream),
+                         "recsys_mark")
+
+
+def test_a_mark_on_a_card_other_than_the_current_one(cuda_device):
+    """Marks on a tensor of the second card while the first is current:
+    eagerly they launch nothing; captured on a stream of the second card,
+    they replay there, and the first card stays current."""
+    from recsys_tpu_torch.utils import profiling
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs")
+    other = torch.device("cuda", 1)
+    x = torch.zeros(1, device=other)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.device(0):
+        for name in profiling.MARKS:
+            profiling.mark(name, x)
+        with torch.cuda.graph(graph, stream=torch.cuda.Stream(other)):
+            for name in profiling.MARKS:
+                profiling.mark(name, x)
+        graph.replay()
+        assert torch.cuda.current_device() == 0
+    torch.cuda.synchronize(other)
+
+
+def test_graphed_devgen_call_marks_each_replay(cuda_device):
+    """Two graphed devgen calls of K = 4 under ``torch.profiler`` (the
+    first captures: its step 0 is the eager warm-up, the rest replays):
+    the card runs the five marks in order once a replay (the warm-up
+    launches none), and the spans stay on the host's track, none on the
+    card's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from recsys_tpu_torch.utils import profiling
+
+    model, ccfg = _graph_model("deepfm", "split")
+    data = fast.stage_dataset(synthetic_criteo(4096, ccfg), cuda_device)
+    ts, tx = TS.create_train_state(model, 0, 1e-3, cuda_device)
+    steps = fast.make_scanned_train_step_devgen(model, tx, 4096, 512)
+    profiling.mark("begin", data["label"])      # the build and load
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for c in range(2):
+            ts, _ = steps(ts, data, 4, 4 * c)
+        torch.cuda.synchronize()
+    events = prof.events()
+    device = sorted((e.time_range.start, e.name) for e in events
+                    if e.device_type == DeviceType.CUDA)
+    marks = [name for _, name in device if name.startswith("recsys_mark_")]
+    assert marks == [f"recsys_mark_{m}" for m in profiling.MARKS] * 7
+    assert not [name for _, name in device if name.startswith("recsys.")]
+    host = collections.Counter(e.name for e in events
+                               if e.name.startswith("recsys."))
+    assert host == {"recsys.train.call": 2, "recsys.train.host_step": 8}
 
 
 def test_graphed_resume_continues_the_run_bitwise(cuda_device, tmp_path):
