@@ -9,12 +9,13 @@
 It fails (exit code other than 0, no result line) without a CUDA device or
 without the package beside it. On a card it
 
-1. prints the card's name and power limit (nvidia-smi) and builds the five
+1. prints the card's name and power limit (nvidia-smi) and builds the six
    kernel sources, one nvcc each, all started together:
    ``csrc/cin_layer.cu`` (CIN forward), ``csrc/cin_backward.cu`` (CIN
    backward), ``csrc/segment_sum.cu`` (the embedding-gradient sum),
-   ``csrc/row_gather.cu`` (the embedding forward gather) and
-   ``csrc/reshape_probe.cu`` (the two reshape probes);
+   ``csrc/row_gather.cu`` (the embedding forward gather),
+   ``csrc/reshape_probe.cu`` (the two reshape probes) and
+   ``csrc/adam_update.cu`` (Adam's update over every leaf);
 2. kernel phases, each kernel against its plain PyTorch version on the card
    at the main paths' shapes, timed with CUDA events in the order plain,
    kernel, kernel, plain, beside the one PyTorch call that computes the
@@ -62,6 +63,15 @@ without the package beside it. On a card it
      ``torch.mul``, then in 5 interleaved rounds of plain, kernel,
      ``torch.mul``, ``torch.mul``, kernel, plain (median, min, max), hot
      and over 4 rotated input/output pairs;
+   - Adam's update: 5 steps of ``optim.adam`` at full-width DeepFM's
+     parameter tree (15 leaves, 14,382,482 parameters) and xDeepFM's (25
+     leaves), at a constant rate and with a cosine schedule and weight
+     decay, bitwise equal to the same steps through the plain loop, one
+     launch a step covering every leaf; timed at each tree as device time
+     in a CUDA graph and as a host loop, beside its bound (28 bytes a
+     parameter) and with no library call (none computes TF-parity Adam);
+     the training phases then count one launch a step over every leaf for
+     every Adam model;
 3. serving: full-width xDeepFM, DCN and DIN with seeded random weights,
    exported, each loaded graphed (the default on the card) and eagerly
    (``graphed=False``): ``warmup`` must capture one CUDA graph per batch
@@ -933,6 +943,121 @@ def reshape_probe_phase(rp, dev) -> dict:
     return res
 
 
+ADAM_STEPS = 5                 # kernel against plain, from one state
+ADAM_TIMED = 20                # updates in each timed CUDA graph
+
+
+def _adam_tree(name, ccfg, dev, seed: int):
+    """[params, grads, mu, nu], each a list of leaves on the card at
+    full-width ``name``'s parameter shapes: weights and moments as after
+    some steps (nu ≥ mu²), the gradients zero on 70% of each leaf's elements,
+    as an embedding table's untouched rows are."""
+    from recsys_tpu_torch.core import tree
+    from recsys_tpu_torch.core.config import ModelConfig
+    from recsys_tpu_torch.models.api import make_model
+
+    shapes = [t.shape for t in tree.leaves(make_model(
+        name, ccfg, ModelConfig(name=name)).init(torch.Generator(),
+                                                  "meta")[0])]
+    gen = torch.Generator().manual_seed(seed)
+
+    def draw(shape, scale):
+        return (scale * torch.randn(shape, generator=gen)).to(dev)
+
+    mu = [draw(s, 1e-3) for s in shapes]
+    return [[draw(s, 0.05) for s in shapes],
+            [draw(s, 1e-2) * (torch.rand(s, generator=gen) < 0.3).to(dev)
+             for s in shapes],
+            mu, [m * m + draw(s, 1e-3) ** 2 for s, m in zip(shapes, mu)]]
+
+
+def _adam_steps(tx, tree, steps: int, plain: bool):
+    """``steps`` updates of ``tx`` on a copy of ``tree`` (the gradients
+    scaled by the step), through the kernel or, with ``plain``, through
+    the plain version in its place. → [params, mu, nu]."""
+    from recsys_tpu_torch.ops import adam_update as au
+    from recsys_tpu_torch.train import optim
+
+    p, g, m, v = ([t.clone() for t in leaves] for leaves in tree)
+    state = optim.AdamState(torch.zeros((), dtype=torch.int32,
+                                        device=p[0].device), m, v)
+    optim.adam_update = au.adam_update_reference if plain else \
+        au.adam_update
+    try:
+        for s in range(steps):
+            tx.update([gi * (1.0 + 0.25 * s) for gi in g], state, p)
+    finally:
+        optim.adam_update = au.adam_update
+    torch.cuda.synchronize()
+    return [p, m, v]
+
+
+def adam_update_phase(au, ccfg, dev) -> dict:
+    """Adam's kernel against its plain version on the card at full-width
+    DeepFM's parameter tree (15 leaves, 14,382,482 parameters) and
+    xDeepFM's (25 leaves): `ADAM_STEPS` steps of ``optim.adam`` from one
+    state, at a constant rate and with a cosine schedule and weight decay,
+    every leaf of the parameters and both moments bitwise equal, one
+    launch a step covering every leaf. Timed at each tree as device time a
+    call in a CUDA graph of `ADAM_TIMED` (plain, kernel, kernel, plain) and
+    as a host loop through the wrapper, beside the bound: 28 bytes a
+    parameter (p, g, m, v read, p, m, v written) over 3.35 TB/s. No PyTorch
+    call computes TF-parity Adam (``torch._fused_adam_`` puts ε inside the
+    bias correction), so there is no library time."""
+    from recsys_tpu_torch.train import optim
+
+    out = {}
+    for name in ("deepfm", "xdeepfm"):
+        tree = _adam_tree(name, ccfg, dev, seed=len(name))
+        n_leaves, n = len(tree[0]), sum(t.numel() for t in tree[0])
+        for label, tx in (
+                ("constant rate", optim.adam(1e-3)),
+                ("cosine schedule, weight decay", optim.adam(
+                    optim.cosine_decay(1e-3, 8, warmup_steps=2),
+                    weight_decay=0.01))):
+            launches, leaves = au.LAUNCHES, au.LEAVES
+            got = _adam_steps(tx, tree, ADAM_STEPS, plain=False)
+            launches, leaves = au.LAUNCHES - launches, au.LEAVES - leaves
+            want = _adam_steps(tx, tree, ADAM_STEPS, plain=True)
+            differ = sum(int((a != b).sum()) for gs, ws in zip(got, want)
+                         for a, b in zip(gs, ws))
+            print(f"adam update {name} ({label}): {n_leaves} leaves, {n} "
+                  f"parameters, {ADAM_STEPS} steps: {differ} elements of "
+                  f"p, m, v differ from the plain version; {launches} "
+                  f"launches covering {leaves} leaves", flush=True)
+            _check(differ == 0, f"adam update {name} ({label}): {differ} "
+                                "elements differ from the plain version")
+            _check(launches == ADAM_STEPS and
+                   leaves == ADAM_STEPS * n_leaves,
+                   f"adam update {name}: {launches} launches covering "
+                   f"{leaves} leaves in {ADAM_STEPS} steps, want one "
+                   f"launch of {n_leaves} leaves a step")
+        p, g, m, v = tree
+        lr_t = torch.full((), 1e-3, device=dev)
+
+        def kern():
+            au.adam_update(p, g, m, v, lr_t, None, 0.9, 0.999, 1e-8)
+
+        def plain():
+            au.adam_update_reference(p, g, m, v, lr_t, None, 0.9, 0.999,
+                                     1e-8)
+
+        t = [_graph_ms(f, ADAM_TIMED) for f in (plain, kern, kern, plain)]
+        k_ms, p_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+        hk_ms, hp_ms = _timed_pair(kern, plain, ADAM_TIMED)
+        b_ms, _ = _bound(28 * n, 0)
+        out[name] = {"leaves": n_leaves, "parameters": n, "ms": k_ms,
+                     "plain_ms": p_ms, "library_ms": None, "bound_ms": b_ms,
+                     "bound_by": "bytes", "host_ms": hk_ms,
+                     "host_plain_ms": hp_ms}
+        print(f"adam update {name}: device ms a call in a CUDA graph: "
+              f"kernel {k_ms:.4f} (plain, kernel, kernel, plain: "
+              f"{', '.join('%.4f' % x for x in t)}), plain {p_ms:.4f}, "
+              f"bound {b_ms:.4f} (bytes: {b_ms / k_ms:.1%} of it); host "
+              f"loop: wrapper {hk_ms:.4f}, plain {hp_ms:.4f}", flush=True)
+    return out
+
+
 def randomize(params, state, seed: int):
     """Every leaf replaced by seeded noise of its shape: BN var in [0.5, 2];
     the biases of the three one-unit branch outputs in [1, 2], so that
@@ -1508,9 +1633,11 @@ def train_phase(name, ccfg, mcfg, batch_size, dev, cin_kernel, ss, rg, *,
     ``reads`` tables. Then 3 steps (``match='steps'``) or one batch's
     gradients (``'grads'``) on the card are held against the CPU. →
     counts and numbers of the main path's run."""
+    from recsys_tpu_torch.core import tree
     from recsys_tpu_torch.data.criteo import synthetic_criteo
     from recsys_tpu_torch.models.api import make_model
-    from recsys_tpu_torch.train import fast
+    from recsys_tpu_torch.ops import adam_update as au
+    from recsys_tpu_torch.train import fast, optim
     from recsys_tpu_torch.train import train_state as TS
 
     label = name + (" (fused engine)" if mcfg.emb_engine == "fused" else "")
@@ -1526,7 +1653,7 @@ def train_phase(name, ccfg, mcfg, batch_size, dev, cin_kernel, ss, rg, *,
 
     torch.cuda.synchronize()
     ss.LAUNCHES = rg.LAUNCHES = cin_kernel.LAUNCHES = 0
-    cin_kernel.BWD_LAUNCHES = 0
+    cin_kernel.BWD_LAUNCHES = au.LAUNCHES = au.LEAVES = 0
     losses, t_calls = [], []
     for c in range(TRAIN_STEPS // K):        # the training path starts here
         t0 = time.perf_counter()
@@ -1535,7 +1662,8 @@ def train_phase(name, ccfg, mcfg, batch_size, dev, cin_kernel, ss, rg, *,
         t_calls.append(time.perf_counter() - t0)
     counts = {"segment_sum": ss.LAUNCHES, "row_gather": rg.LAUNCHES,
               "cin_fwd": cin_kernel.LAUNCHES,
-              "cin_bwd": cin_kernel.BWD_LAUNCHES}   # ... and ends here
+              "cin_bwd": cin_kernel.BWD_LAUNCHES, "adam": au.LAUNCHES,
+              "adam_leaves": au.LEAVES}            # ... and ends here
     steps = K * len(losses)
     # the first call warms up the allocator and cuBLAS: rate over the rest
     ex_s = batch_size * K * (len(t_calls) - 1) / sum(t_calls[1:])
@@ -1552,6 +1680,14 @@ def train_phase(name, ccfg, mcfg, batch_size, dev, cin_kernel, ss, rg, *,
            f"{label}: segment-sum and row-gather launches {counts} for "
            f"{steps} steps, want {reads * steps} each ({reads} table reads "
            "per step)")
+    # one Adam launch a step covers every leaf (wide trains with FTRL)
+    n_adam = (len(tree.leaves(ts.params))
+              if isinstance(ts.opt_state, optim.AdamState) else 0)
+    _check(counts["adam"] == steps * (n_adam > 0) and
+           counts["adam_leaves"] == steps * n_adam,
+           f"{label}: Adam launches {counts['adam']} covering "
+           f"{counts['adam_leaves']} leaves for {steps} steps, want one "
+           f"launch of {n_adam} leaves a step")
     if name == "xdeepfm":
         _check(counts["cin_fwd"] == 3 * steps and
                counts["cin_bwd"] == 3 * steps,
@@ -3082,6 +3218,7 @@ def main() -> None:
     from recsys_tpu_torch.data.criteo import synthetic_criteo
     from recsys_tpu_torch.models.api import make_model
     from recsys_tpu_torch.models.din import CATE_VOCAB, ITEM_VOCAB
+    from recsys_tpu_torch.ops import adam_update as au
     from recsys_tpu_torch.ops import cin_kernel, cuda_build
     from recsys_tpu_torch.ops import reshape_probe as rp
     from recsys_tpu_torch.ops import row_gather as rg
@@ -3099,7 +3236,7 @@ def main() -> None:
     t_start = time.perf_counter()
 
     sources = [cin_kernel.SOURCE, cin_kernel.BWD_SOURCE, ss.SOURCE, rg.SOURCE,
-               rp.SOURCE]
+               rp.SOURCE, au.SOURCE]
     libs = cuda_build.build_all(sources)
     print(f"built {len(libs)} kernel sources in parallel in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
@@ -3124,6 +3261,7 @@ def main() -> None:
     seg = segment_sum_phase(ss, ccfg, dev)
     gat = row_gather_phase(rg, ccfg, dev)
     probe = reshape_probe_phase(rp, dev)
+    adam = adam_update_phase(au, ccfg, dev)
     print(f"kernel phases ok [{card}]: CIN fwd {fwd['ms']:.4f} ms vs plain "
           f"{fwd['plain_ms']:.4f} ms ({fwd['graph_ms']:.4f} ms of device "
           f"time), CIN bwd {bwd['ms']:.4f} ms vs plain "
@@ -3136,7 +3274,11 @@ def main() -> None:
           f"B=16384); reshape probes {probe['flat']['ms']:.4f} / "
           f"{probe['2d']['ms']:.4f} ms vs torch.mul "
           f"{probe['flat']['library_ms']:.4f} / "
-          f"{probe['2d']['library_ms']:.4f} ms of device time", flush=True)
+          f"{probe['2d']['library_ms']:.4f} ms of device time; Adam "
+          f"{adam['deepfm']['ms']:.4f} / {adam['xdeepfm']['ms']:.4f} ms vs "
+          f"plain {adam['deepfm']['plain_ms']:.4f} / "
+          f"{adam['xdeepfm']['plain_ms']:.4f} ms of device time (DeepFM's / "
+          "xDeepFM's tree)", flush=True)
 
     served = {}
     for name, mcfg, per_request in (
@@ -3364,7 +3506,22 @@ def main() -> None:
                  f"W={PROBE_W}; library: torch.mul(x, 2.0)",
          **probe[key]}
         for name, key, line in (("reshape_probe_flat", "flat", 18),
-                                ("reshape_probe_2d", "2d", 33))]}))
+                                ("reshape_probe_2d", "2d", 33))] + [
+        {"name": "adam_update", "route": "cuda",
+         "source": "recsys_tpu_torch/csrc/adam_update.cu", "replaces": None,
+         "note": "replaces no TPU kernel (XLA fuses the JAX package's "
+                 "Adam); ms, plain_ms: device time a call in a CUDA graph "
+                 f"of {ADAM_TIMED} at DeepFM's tree (trees: each tree's); "
+                 "no library call computes TF-parity Adam; launches, "
+                 "leaves: DeepFM training, one launch a step over every "
+                 "leaf; elsewhere: " + ", ".join(
+                     f"{k} {v['counts']['adam']} ({v['counts']['adam_leaves']}"
+                     " leaves)" for k, v in trained.items()),
+         "launches": trained["DeepFM"]["counts"]["adam"],
+         "leaves": trained["DeepFM"]["counts"]["adam_leaves"],
+         "trees": adam,
+         **{k: adam["deepfm"][k] for k in ("ms", "plain_ms", "library_ms",
+                                           "bound_ms", "bound_by")}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

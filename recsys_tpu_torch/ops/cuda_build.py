@@ -142,8 +142,8 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
                            f"({lib.kernel_error_string(err).decode()})")
 
 
-def tally_launch(counter: str, stream: int) -> None:
-    """Add one to ``counter`` in the open tally of ``stream`` (the CUDA
+def tally_launch(counter: str, stream: int, n: int = 1) -> None:
+    """Add ``n`` to ``counter`` in the open tally of ``stream`` (the CUDA
     stream handle the launch went to), if it has one. Every kernel wrapper
     calls it where it counts a launch."""
     if not _tallies:
@@ -151,7 +151,7 @@ def tally_launch(counter: str, stream: int) -> None:
     with _tally_lock:
         tally = _tallies.get(stream)
         if tally is not None:
-            tally[counter] = tally.get(counter, 0) + 1
+            tally[counter] = tally.get(counter, 0) + n
 
 
 @contextlib.contextmanager

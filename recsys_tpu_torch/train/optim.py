@@ -31,6 +31,7 @@ from typing import Any, NamedTuple
 import torch
 
 from recsys_tpu_torch.core import tree as tree_util
+from recsys_tpu_torch.ops.adam_update import adam_update
 
 
 class Optimizer(NamedTuple):
@@ -53,7 +54,9 @@ def adam(learning_rate, b1: float = 0.9, b2: float = 0.999,
     PLACE, under ``torch.no_grad()``: it overwrites the parameter tensors,
     ``mu``, ``nu`` and ``count`` that it is given and returns the same
     objects. The bias correction and the schedule are computed on the
-    device from ``count``, so a step never waits for the host."""
+    device from ``count``, so a step never waits for the host; the
+    elementwise update of every leaf is `ops.adam_update.adam_update`, one
+    CUDA kernel launch over all leaves on the card."""
 
     def init(params) -> AdamState:
         leaves = tree_util.leaves(params)
@@ -70,17 +73,10 @@ def adam(learning_rate, b1: float = 0.9, b2: float = 0.999,
         t = state.count.to(torch.float32)
         lr = learning_rate(t) if callable(learning_rate) else learning_rate
         lr_t = lr * torch.sqrt(1.0 - b2 ** t) / (1.0 - b1 ** t)
-        for p, g, m, v in zip(tree_util.leaves(params),
-                              tree_util.leaves(grads),
-                              tree_util.leaves(state.mu),
-                              tree_util.leaves(state.nu)):
-            m.mul_(b1).add_(g, alpha=1 - b1)
-            v.mul_(b2).addcmul_(g, g, value=1 - b2)
-            # the decay reads p before the step's write: (p − u) − lr·wd·p
-            decay = lr * weight_decay * p if weight_decay else None
-            p.sub_(lr_t * m / (v.sqrt() + eps))
-            if decay is not None:
-                p.sub_(decay)
+        adam_update(tree_util.leaves(params), tree_util.leaves(grads),
+                    tree_util.leaves(state.mu), tree_util.leaves(state.nu),
+                    lr_t, lr * weight_decay if weight_decay else None,
+                    b1, b2, eps)
         return params, state
 
     return Optimizer(init, update)

@@ -1,5 +1,6 @@
 """The port on the card: the CUDA kernels (CIN forward and backward,
-segment sum, row gather, the reshape probes) against their plain versions
+segment sum, row gather, the reshape probes, Adam's update) against their
+plain versions
 at the shapes of full-width xDeepFM, DeepFM, DIN and the fused engine,
 autograd through them, servables on the card against the same servables on
 the CPU, and training steps of the zoo on the card against the same steps
@@ -26,6 +27,7 @@ from recsys_tpu_torch.core.config import CriteoConfig, ModelConfig
 from recsys_tpu_torch.data.criteo import synthetic_criteo
 from recsys_tpu_torch.models.api import make_model
 from recsys_tpu_torch.data import amazon
+from recsys_tpu_torch.ops import adam_update as au
 from recsys_tpu_torch.ops import cin_kernel
 from recsys_tpu_torch.ops import reshape_probe as rp
 from recsys_tpu_torch.ops import row_gather as rg
@@ -1600,3 +1602,192 @@ def test_cavi_on_the_card_stops_at_the_cpus_sweep(cuda_device):
     assert gpu.m.device.type == "cuda"
     assert int(gpu.it) == int(cpu.it) < 500
     torch.testing.assert_close(gpu.m.cpu(), cpu.m, atol=1e-4, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# Adam's update (ops/adam_update.py, csrc/adam_update.cu): bitwise the plain
+# loop, whose operations the kernel computes in their order, each rounded
+# once (the two fused multiply-adds are PyTorch's add_(alpha=) and
+# addcmul_(value=) on the card)
+# ---------------------------------------------------------------------------
+
+
+def _adam_tree(shapes, device, seed):
+    """[params, grads, mu, nu] at ``shapes``: moments as after some steps
+    (nu ≥ mu²), the gradients zero on about 70% of the elements, as an
+    embedding table's untouched rows are."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(shape, scale):
+        return scale * torch.randn(shape, generator=gen, device=device)
+
+    mu = [draw(s, 1e-3) for s in shapes]
+    return [[draw(s, 0.05) for s in shapes],
+            [draw(s, 1e-2) * (torch.rand(s, generator=gen, device=device)
+                              < 0.3) for s in shapes],
+            mu, [m * m + draw(s, 1e-3) ** 2 for s, m in zip(shapes, mu)]]
+
+
+def _adam_steps(tx, tree, steps, plain, monkeypatch):
+    """``steps`` updates of ``tx`` on a copy of ``tree`` (the gradients
+    scaled by the step) through the kernel, or through the plain version
+    in its place. → [params, mu, nu]."""
+    from recsys_tpu_torch.train import optim
+
+    p, g, m, v = ([t.clone() for t in leaves] for leaves in tree)
+    state = optim.AdamState(torch.zeros((), dtype=torch.int32,
+                                        device=p[0].device), m, v)
+    with monkeypatch.context() as mp:
+        if plain:
+            mp.setattr(optim, "adam_update", au.adam_update_reference)
+        for s in range(steps):
+            tx.update([gi * (1.0 + 0.25 * s) for gi in g], state, p)
+    torch.cuda.synchronize()
+    return [p, m, v]
+
+
+def _assert_leaves_equal(got, want):
+    for gs, ws in zip(got, want, strict=True):
+        for a, b in zip(gs, ws, strict=True):
+            assert torch.equal(a, b), int((a != b).sum())
+
+
+def _schedules():
+    from recsys_tpu_torch.train import optim
+
+    return {"constant": lambda: optim.adam(1e-3),
+            "decay": lambda: optim.adam(1e-3, weight_decay=0.01),
+            "cosine+decay": lambda: optim.adam(
+                optim.cosine_decay(1e-3, 8, warmup_steps=2),
+                weight_decay=0.01)}
+
+
+@pytest.mark.parametrize("schedule", ["constant", "decay", "cosine+decay"])
+@pytest.mark.parametrize("name", ["deepfm", "xdeepfm"])
+def test_adam_kernel_is_the_plain_loop_on_the_model_trees(
+        cuda_device, monkeypatch, name, schedule):
+    """Full-width DeepFM's tree (15 leaves, 14,382,482 parameters) and
+    xDeepFM's (25 leaves): 5 steps of ``optim.adam`` through the kernel
+    bitwise equal to the same steps through the plain loop, one launch a
+    step covering every leaf."""
+    model = make_model(name, CriteoConfig(), ModelConfig(name=name))
+    shapes = [t.shape for t in tree_util.leaves(
+        model.init(torch.Generator(), "meta")[0])]
+    tree = _adam_tree(shapes, cuda_device, seed=len(name))
+    tx = _schedules()[schedule]()
+    launches, leaves = au.LAUNCHES, au.LEAVES
+    got = _adam_steps(tx, tree, 5, False, monkeypatch)
+    assert (au.LAUNCHES - launches, au.LEAVES - leaves) == (5,
+                                                            5 * len(shapes))
+    want = _adam_steps(tx, tree, 5, True, monkeypatch)
+    _assert_leaves_equal(got, want)
+    assert not torch.equal(got[0][-2], tree[0][-2])   # the big table moved
+
+
+ADAM_EDGE_CASES = {
+    # sizes whose last chunk is ragged: not multiples of 4
+    "ragged": [(4099,), (17, 3), (4096 + 3,), (3,)],
+    "one element": [(), (1,), (1, 1)],
+    "empty leaf": [(5000,), (0,), (0, 17), (7,)],
+    # more leaves than one launch takes (64): three launches
+    "many leaves": [(1 + 37 * i,) for i in range(150)],
+}
+
+
+@pytest.mark.parametrize("decay", [False, True])
+@pytest.mark.parametrize("case", list(ADAM_EDGE_CASES))
+def test_adam_kernel_edge_leaves(cuda_device, case, decay):
+    """Ragged leaves, one-element and empty leaves, and more leaves than a
+    launch covers: the kernel bitwise equal to the plain version, with
+    one launch per 64 non-empty leaves."""
+    shapes = ADAM_EDGE_CASES[case]
+    tree = _adam_tree(shapes, cuda_device, seed=len(shapes))
+    lr_t = torch.full((), 2.5e-3, device=cuda_device)
+    lr_wd = torch.full((), 1e-5, device=cuda_device) if decay else None
+    want = [[t.clone() for t in leaves] for leaves in tree]
+    au.adam_update_reference(*want, lr_t, lr_wd, 0.9, 0.999, 1e-8)
+    launches, leaves = au.LAUNCHES, au.LEAVES
+    au.adam_update(*tree, lr_t, lr_wd, 0.9, 0.999, 1e-8)
+    torch.cuda.synchronize()
+    live = sum(1 for s in shapes if int(np.prod(s)) > 0)
+    assert (au.LAUNCHES - launches, au.LEAVES - leaves) == (-(-live // 64),
+                                                            live)
+    _assert_leaves_equal(tree, want)
+
+
+def test_adam_kernel_takes_views_off_alignment(cuda_device):
+    """Leaves 4 bytes off 16-byte alignment (the scalar path), beside an
+    aligned one (the float4 path) in the same launch: bitwise the plain
+    version, and a number as lr_wd is read as the float32 the plain
+    version multiplies by."""
+    n = 10_001
+    buffers = _adam_tree([(n + 1,)], cuda_device, seed=3)
+    aligned = _adam_tree([(n,)], cuda_device, seed=4)
+    tree = [[b[0][1:], a[0]] for b, a in zip(buffers, aligned)]
+    assert tree[0][0].data_ptr() % 16 == 4
+    want = [[t.clone() for t in leaves] for leaves in tree]
+    lr_t = torch.full((), 1e-3, device=cuda_device)
+    au.adam_update_reference(*want, lr_t, 3e-6, 0.9, 0.999, 1e-8)
+    au.adam_update(*tree, lr_t, 3e-6, 0.9, 0.999, 1e-8)
+    torch.cuda.synchronize()
+    _assert_leaves_equal(tree, want)
+
+
+def test_adam_cosine_schedule_replays_read_their_own_step(cuda_device,
+                                                          monkeypatch):
+    """One ``optim.adam`` update with a cosine schedule (its warm-up ends
+    inside) and weight decay captured in a CUDA graph and replayed 6
+    times: each replay reads its own step's rate, so the state is bitwise
+    that of 6 eager updates, through the kernel and through the plain
+    loop."""
+    from recsys_tpu_torch.train import optim
+
+    tree = _adam_tree([(3000, 17), (100,), (), (24, 10)], cuda_device, 9)
+    tx = _schedules()["cosine+decay"]()
+    _adam_steps(tx, tree, 1, False, monkeypatch)   # loads the kernel
+    p, g, m, v = ([t.clone() for t in leaves] for leaves in tree)
+    state = optim.AdamState(torch.zeros((), dtype=torch.int32,
+                                        device=cuda_device), m, v)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        tx.update(g, state, p)
+    for _ in range(6):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert int(state.count) == 6
+
+    def eager(plain):
+        p, g, m, v = ([t.clone() for t in leaves] for leaves in tree)
+        st = optim.AdamState(torch.zeros((), dtype=torch.int32,
+                                         device=cuda_device), m, v)
+        with monkeypatch.context() as mp:
+            if plain:
+                mp.setattr(optim, "adam_update", au.adam_update_reference)
+            for _ in range(6):
+                tx.update(g, st, p)
+        torch.cuda.synchronize()
+        return [p, m, v]
+
+    _assert_leaves_equal([p, m, v], eager(False))
+    _assert_leaves_equal([p, m, v], eager(True))
+
+
+@pytest.mark.parametrize("name,engine", [("deepfm", "split"),
+                                         ("xdeepfm", "split"),
+                                         ("wide", "split")])
+def test_graphed_adam_launch_counts_are_one_a_step(cuda_device, name,
+                                                   engine):
+    """Under replay the Adam kernel's counters count what ran: one launch
+    a step covering every leaf of the tree; none for wide, which trains
+    with FTRL."""
+    model, ccfg = _graph_model(name, engine)
+    data = fast.stage_dataset(synthetic_criteo(4096, ccfg), cuda_device)
+    ts, tx = TS.create_train_state(model, 0, 1e-3, cuda_device)
+    steps = fast.make_scanned_train_step_devgen(model, tx, 4096, 512)
+    n_leaves = 0 if name == "wide" else len(tree_util.leaves(ts.params))
+    for c, k in enumerate((1, 7, 4)):     # capture in a call of one step
+        before = (au.LAUNCHES, au.LEAVES)
+        ts, _ = steps(ts, data, k, c * 7)
+        torch.cuda.synchronize()
+        assert (au.LAUNCHES - before[0], au.LEAVES - before[1]) == (
+            k * (n_leaves > 0), k * n_leaves)

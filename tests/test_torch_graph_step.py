@@ -326,6 +326,6 @@ def test_a_launch_tally_counts_its_own_stream_only():
     assert not other.is_alive()
     assert tally == {"row_gather.LAUNCHES": 1, "segment_sum.LAUNCHES": 1}
     assert step_graph._tallied({"recsys_tpu_torch.ops.row_gather.LAUNCHES":
-                                3}) == [0, 3, 0, 0]
+                                3}) == [0, 3, 0, 0, 0, 0]
     cuda_build.tally_launch("row_gather.LAUNCHES", 7)   # closed: no error
     assert tally["row_gather.LAUNCHES"] == 1
