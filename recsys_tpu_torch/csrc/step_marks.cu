@@ -7,6 +7,18 @@
 //     recsys_mark_optimizer  before the optimizer's update
 //     recsys_mark_end        after the step's last write
 //
+// and four that bound a unit of a model inside those sections (DIN's two
+// attention units; models/din.py):
+//
+//     recsys_unit_attention_forward       before the first unit's input
+//     recsys_unit_attention_forward_end   after the second unit's output
+//     recsys_unit_attention_backward      when the units' output gradients
+//                                         have come
+//     recsys_unit_attention_backward_end  when their input gradients have
+//
+// A unit mark's name lies outside recsys_mark_, so that a reader that
+// splits a replay by the section marks passes over it.
+//
 // A CUDA graph replay runs no host code, so a host span cannot split a
 // replayed step. A kernel launched inside the capture becomes a node of the
 // graph, and every replay runs it in its place in the stream's order: in a
@@ -29,6 +41,10 @@ __global__ void recsys_mark_forward() {}
 __global__ void recsys_mark_backward() {}
 __global__ void recsys_mark_optimizer() {}
 __global__ void recsys_mark_end() {}
+__global__ void recsys_unit_attention_forward() {}
+__global__ void recsys_unit_attention_forward_end() {}
+__global__ void recsys_unit_attention_backward() {}
+__global__ void recsys_unit_attention_backward_end() {}
 
 // Launches mark `which` (0 begin, 1 forward, 2 backward, 3 optimizer,
 // 4 end) on `stream`; does not synchronise.
@@ -40,6 +56,21 @@ int recsys_mark(int which, void* stream) {
     case 2: recsys_mark_backward<<<1, 1, 0, s>>>(); break;
     case 3: recsys_mark_optimizer<<<1, 1, 0, s>>>(); break;
     case 4: recsys_mark_end<<<1, 1, 0, s>>>(); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches unit mark `which` (0 attention_forward, 1 attention_forward_end,
+// 2 attention_backward, 3 attention_backward_end) on `stream`; does not
+// synchronise.
+int recsys_unit_mark(int which, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (which) {
+    case 0: recsys_unit_attention_forward<<<1, 1, 0, s>>>(); break;
+    case 1: recsys_unit_attention_forward_end<<<1, 1, 0, s>>>(); break;
+    case 2: recsys_unit_attention_backward<<<1, 1, 0, s>>>(); break;
+    case 3: recsys_unit_attention_backward_end<<<1, 1, 0, s>>>(); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -18,6 +18,15 @@ padding, masked in the attention.
 - top MLP (100, 50, 20) over concat(item_emb, item_att, cate_att), no batch
   norm, then a dense layer to one logit.
 
+In train mode the two attention units are bounded by marks
+(`profiling.UNIT_MARKS`): ``attention_forward`` before the first unit's
+input, ``attention_forward_end`` after the second unit's output, and in the
+backward ``attention_backward`` once the units' output gradients have come,
+``attention_backward_end`` once their input gradients have; a captured step
+launches them, an eager one none. ``meta['attention_counter']`` (a
+`profiling.DeviceCounter` of `interactions.ATTENTION_COUNTS`) sums both
+units' rows and real history positions on the device.
+
 The parameter tree is the JAX model's, so a converted JAX tree drops in.
 """
 
@@ -30,6 +39,7 @@ from recsys_tpu_torch.core.config import ModelConfig
 from recsys_tpu_torch.embeddings import table as emb_table
 from recsys_tpu_torch.models.api import Model, register
 from recsys_tpu_torch.ops import interactions, nn
+from recsys_tpu_torch.utils import profiling
 
 ITEM_VOCAB = 63002   # din/din.py:88-89
 CATE_VOCAB = 802     # din/din.py:90
@@ -40,6 +50,7 @@ def make_din(item_vocab: int = ITEM_VOCAB, cate_vocab: int = CATE_VOCAB,
              cfg: ModelConfig = ModelConfig(name="din", embedding_dim=32,
                                             use_bn=False)) -> Model:
     d = cfg.embedding_dim
+    counter = profiling.DeviceCounter(interactions.ATTENTION_COUNTS)
 
     def init(gen: torch.Generator, device):
         params = {
@@ -66,12 +77,21 @@ def make_din(item_vocab: int = ITEM_VOCAB, cate_vocab: int = CATE_VOCAB,
                                            batch["hist_iid"])
         hist_cate = emb_table.table_gather(params["cate_emb"],
                                            batch["hist_cate"])
+        units_in = (hist_item, item_emb, hist_cate, cate_emb)
+        if train:
+            profiling.mark("attention_forward", hist_item)
+            units_in = profiling.backward_mark("attention_backward_end",
+                                               *units_in)
         att_item = interactions.din_attention(
-            params["att_item"], hist_item, batch["hist_iid"], item_emb,
-            train=train, dropout_rate=cfg.dropout, gen=gen)
+            params["att_item"], units_in[0], batch["hist_iid"], units_in[1],
+            train=train, dropout_rate=cfg.dropout, gen=gen, counter=counter)
         att_cate = interactions.din_attention(
-            params["att_cate"], hist_cate, batch["hist_cate"], cate_emb,
-            train=train, dropout_rate=cfg.dropout, gen=gen)
+            params["att_cate"], units_in[2], batch["hist_cate"], units_in[3],
+            train=train, dropout_rate=cfg.dropout, gen=gen, counter=counter)
+        if train:
+            att_item, att_cate = profiling.backward_mark(
+                "attention_backward", att_item, att_cate)
+            profiling.mark("attention_forward_end", att_cate)
 
         net = torch.cat([item_emb, att_item, att_cate], dim=1)
         h, mlp_s = nn.mlp_apply(params["mlp"], state["mlp"], net, train=train,
@@ -97,4 +117,5 @@ def make_din(item_vocab: int = ITEM_VOCAB, cate_vocab: int = CATE_VOCAB,
                 np.int32),
         }
 
-    return Model("din", init, apply, meta={"sample_features": sample_features})
+    return Model("din", init, apply, meta={"sample_features": sample_features,
+                                           "attention_counter": counter})

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from recsys_tpu_torch.ops import cin_kernel, nn
+from recsys_tpu_torch.utils import profiling
 
 
 def fm_pairwise_from_sums(emb_sum: torch.Tensor,
@@ -92,10 +93,17 @@ def din_attention_init(gen: torch.Generator, emb_dim: int,
     return params
 
 
+#: the counts of `din_attention` in train mode: the rows its MLP computed
+#: (B·P a call) and the real, unpadded, history positions among them
+ATTENTION_COUNTS = ("rows", "real")
+
+
 def din_attention(params, hist_emb: torch.Tensor, hist_ids: torch.Tensor,
                   query_emb: torch.Tensor, *, train: bool = False,
                   dropout_rate: float = 0.0,
-                  gen: torch.Generator | None = None) -> torch.Tensor:
+                  gen: torch.Generator | None = None,
+                  counter: profiling.DeviceCounter | None = None
+                  ) -> torch.Tensor:
     """Per-position attention MLP over [hist, query, hist⊙query, hist−query]
     on the flattened [B·P, 4K] rows (dropout after each hidden layer in
     train mode), then the weighted sum over the history with padded
@@ -103,8 +111,11 @@ def din_attention(params, hist_emb: torch.Tensor, hist_ids: torch.Tensor,
 
     hist_emb [B, P, K], hist_ids [B, P], query_emb [B, K]. A padded
     position adds exactly zero, so padding P further leaves the result
-    unchanged."""
+    unchanged. In train mode ``counter`` (of `ATTENTION_COUNTS`) adds the
+    rows and the real positions on the device."""
     b, p, k = hist_emb.shape
+    if train and counter is not None:
+        counter.add(hist_ids, b * p, torch.count_nonzero(hist_ids))
     query = query_emb[:, None, :].expand(b, p, k)
     h = torch.cat([hist_emb, query, hist_emb * query, hist_emb - query],
                   dim=-1).reshape(b * p, 4 * k)

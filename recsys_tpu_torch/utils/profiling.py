@@ -22,7 +22,12 @@ The training path records into whatever profiler is on:
   It is a node of the step's graph, so every replay runs it: in a device
   trace the marks cut each replayed step into its input, forward, backward
   and optimizer sections, which no host code can do. An eager step
-  launches none.
+  launches none. The bounds of a model's unit inside those sections,
+  `UNIT_MARKS`, are marks too (DIN's attention units, forward and
+  backward; `backward_mark` places one in the backward);
+- `DeviceCounter`: counts a captured step adds up on the card (DIN's
+  attention rows and real history positions), read by the host once a
+  call and never inside one.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import collections
 import ctypes
 import os
 import subprocess
+import threading
 
 import torch
 from torch._C._profiler import _RecordFunctionFast
@@ -40,6 +46,11 @@ from recsys_tpu_torch.ops import cuda_build
 #: the section boundaries of a training step, in order; mark ``m`` is the
 #: kernel ``recsys_mark_<m>``
 MARKS = ("begin", "forward", "backward", "optimizer", "end")
+#: the bounds of a unit of a model inside a step's sections; mark ``u`` is
+#: the kernel ``recsys_unit_<u>``, a name outside ``recsys_mark_``, so that
+#: a trace's split of a replay by `MARKS` passes over it
+UNIT_MARKS = ("attention_forward", "attention_forward_end",
+              "attention_backward", "attention_backward_end")
 MARK_SOURCE = cuda_build.source("step_marks.cu")
 
 
@@ -56,29 +67,98 @@ def span(name: str):
 def _mark_lib() -> ctypes.CDLL:
     lib = cuda_build.load(MARK_SOURCE)
     if lib.recsys_mark.argtypes is None:
-        lib.recsys_mark.argtypes = [ctypes.c_int, ctypes.c_void_p]
-        lib.recsys_mark.restype = ctypes.c_int
+        for fn in (lib.recsys_mark, lib.recsys_unit_mark):
+            fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
     return lib
 
 
 def mark(name: str, like: torch.Tensor) -> None:
-    """Launch the mark ``name`` (one of `MARKS`) into the graph that the
-    current stream of ``like``'s device is capturing: one block of one
-    thread that does nothing, named ``recsys_mark_<name>`` in a device
-    trace, which every replay of the graph runs. Outside a capture the
-    mark launches nothing (an eager step's sections show in the host's
-    trace, where a launch would cost each step); on CUDA it builds and
-    loads the marks' library, as the warm-up step before a capture does.
-    On a tensor that is not on CUDA, nothing."""
+    """Launch the mark ``name`` (one of `MARKS` or `UNIT_MARKS`) into the
+    graph that the current stream of ``like``'s device is capturing: one
+    block of one thread that does nothing, named ``recsys_mark_<name>``
+    (``recsys_unit_<name>``) in a device trace, which every replay of the
+    graph runs. Outside a capture the mark launches nothing (an eager
+    step's sections show in the host's trace, where a launch would cost
+    each step); on CUDA it builds and loads the marks' library, as the
+    warm-up step before a capture does. On a tensor that is not on CUDA,
+    nothing."""
     if like.device.type != "cuda":
         return
     lib = _mark_lib()
+    if name in MARKS:
+        launch, which, kernel = lib.recsys_mark, MARKS.index(name), "mark"
+    else:
+        launch, which, kernel = (lib.recsys_unit_mark,
+                                 UNIT_MARKS.index(name), "unit")
     with torch.cuda.device(like.device):
         if not torch.cuda.is_current_stream_capturing():
             return
         stream = torch.cuda.current_stream(like.device).cuda_stream
-        err = lib.recsys_mark(MARKS.index(name), stream)
-    cuda_build.check(lib, err, f"recsys_mark_{name}")
+        err = launch(which, stream)
+    cuda_build.check(lib, err, f"recsys_{kernel}_{name}")
+
+
+class _BackwardMark(torch.autograd.Function):
+    """The identity on its tensors; its backward launches a mark once all
+    of their gradients have come."""
+
+    @staticmethod
+    def forward(ctx, name, *xs):
+        ctx.mark_name = name
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mark(ctx.mark_name, grads[0])
+        return (None, *grads)
+
+
+def backward_mark(name: str, *xs: torch.Tensor) -> tuple:
+    """``xs`` unchanged (views of them), through a node of autograd whose
+    backward launches the mark ``name`` (`mark`) once every gradient of
+    ``xs`` has arrived, before the gradients go on: wrapped round a unit's
+    outputs, the mark opens the unit's backward, round its inputs it
+    closes it."""
+    return _BackwardMark.apply(name, *xs)
+
+
+class DeviceCounter:
+    """Counts summed on the card: ``add(like, *values)`` adds one value a
+    count (a Python int or an integer scalar tensor on ``like``'s device)
+    into an int64 vector on that device, made at the first add (a graph's
+    warm-up step, never inside its capture), so a captured step adds into
+    it at every replay and nothing reads it back. `totals` reads a
+    device's sums: the one host read, once a call and never inside one."""
+
+    def __init__(self, names: tuple[str, ...]):
+        self.names = tuple(names)
+        self._sums: dict[torch.device, torch.Tensor] = {}
+        self._lock = threading.Lock()
+
+    def add(self, like: torch.Tensor, *values) -> None:
+        if len(values) != len(self.names):
+            raise ValueError(f"DeviceCounter: {len(values)} values for the "
+                             f"counts {self.names}")
+        with self._lock:
+            sums = self._sums.get(like.device)
+            if sums is None:
+                sums = self._sums[like.device] = torch.zeros(
+                    (len(self.names),), dtype=torch.int64,
+                    device=like.device)
+        for i, v in enumerate(values):
+            sums[i].add_(v)
+
+    def totals(self, device) -> dict[str, int] | None:
+        """{count: its sum so far} on ``device`` (a host read), or None
+        where nothing was added there."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        sums = self._sums.get(device)
+        if sums is None:
+            return None
+        return dict(zip(self.names, sums.tolist()))
 
 
 def card(device) -> str:
