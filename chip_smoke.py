@@ -9,13 +9,14 @@
 It fails (exit code other than 0, no result line) without a CUDA device or
 without the package beside it. On a card it
 
-1. prints the card's name and power limit (nvidia-smi) and builds the six
+1. prints the card's name and power limit (nvidia-smi) and builds the seven
    kernel sources, one nvcc each, all started together:
    ``csrc/cin_layer.cu`` (CIN forward), ``csrc/cin_backward.cu`` (CIN
    backward), ``csrc/segment_sum.cu`` (the embedding-gradient sum),
    ``csrc/row_gather.cu`` (the embedding forward gather),
-   ``csrc/reshape_probe.cu`` (the two reshape probes) and
-   ``csrc/adam_update.cu`` (Adam's update over every leaf);
+   ``csrc/reshape_probe.cu`` (the two reshape probes),
+   ``csrc/adam_update.cu`` (Adam's update over every leaf) and
+   ``csrc/din_attention.cu`` (the work round DIN's attention products);
 2. kernel phases, each kernel against its plain PyTorch version on the card
    at the main paths' shapes, timed with CUDA events in the order plain,
    kernel, kernel, plain, beside the one PyTorch call that computes the
@@ -72,6 +73,15 @@ without the package beside it. On a card it
      parameter) and with no library call (none computes TF-parity Adam);
      the training phases then count one launch a step over every leaf for
      every Adam model;
+   - DIN's attention-unit kernels at the DIN cell's shapes (B = 1,024,
+     P = 128, K = 32, hidden 80-40, dropout 0.1): the build, both
+     epilogues and the pooling bitwise equal to their plain versions, the
+     backward's head, epilogue backward, fold and column sums within 1e-6
+     of each output's norm, each timed in a CUDA graph and back to back
+     beside its bound; then one unit's forward (bitwise) and backward
+     (within 1e-6) through the Function against autograd over the plain
+     unit, timed in a CUDA graph; DIN's training phase then counts 8
+     launches a unit a step and 4 an eval batch;
 3. serving: full-width xDeepFM, DCN and DIN with seeded random weights,
    exported, each loaded graphed (the default on the card) and eagerly
    (``graphed=False``): ``warmup`` must capture one CUDA graph per batch
@@ -261,6 +271,8 @@ PROBE_ROUNDS = 5         # rounds of plain, kernel, library, library, ...
 PROBE_PAIRS = 4          # rotated: 4 x 114 MB of buffers, over L2's 50 MB
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+DIN_UNIT = (1024, 128, 32, (80, 40))   # B, P, K, hidden: the DIN cell's units
+DIN_UNIT_TIMED = 20            # calls a CUDA graph of the unit's kernels
 
 
 def _check(ok: bool, what: str) -> None:
@@ -1055,6 +1067,166 @@ def adam_update_phase(au, ccfg, dev) -> dict:
               f"{', '.join('%.4f' % x for x in t)}), plain {p_ms:.4f}, "
               f"bound {b_ms:.4f} (bytes: {b_ms / k_ms:.1%} of it); host "
               f"loop: wrapper {hk_ms:.4f}, plain {hp_ms:.4f}", flush=True)
+    return out
+
+
+def din_attention_phase(da, dev) -> dict:
+    """DIN's attention-unit kernels (``csrc/din_attention.cu``) against
+    their plain versions on the card at the DIN cell's shapes (`DIN_UNIT`:
+    B = 1,024, P = 128, K = 32, hidden 80-40, dropout 0.1, about 31.5% of
+    the positions padding): the forward's kernels bitwise equal to theirs
+    (the epilogue at both layers, the pooling with its ``torch.sum``), the
+    backward's within 1e-6 of each output's norm; each timed as device time
+    a call in a CUDA graph of `DIN_UNIT_TIMED` (plain, kernel, kernel,
+    plain) and back to back, beside its bound (its bytes, each read and
+    write once, over 3.35 TB/s); then one unit's forward and backward
+    through the Function against autograd over the plain unit. No single
+    PyTorch call computes any of them, so there is no library time."""
+    from recsys_tpu_torch.ops import interactions
+
+    b, p, k, widths = DIN_UNIT
+    rows = b * p
+    gen = torch.Generator().manual_seed(22)
+    params = interactions.din_attention_init(gen, k, widths, "cpu")
+    for layer in (*params["mlp"], params["out"]):
+        layer["b"] = 0.05 * torch.randn(layer["b"].shape, generator=gen)
+    params = {"mlp": [{n: t.to(dev) for n, t in l.items()}
+                      for l in params["mlp"]],
+              "out": {n: t.to(dev) for n, t in params["out"].items()}}
+    hist = torch.randn(b, p, k, generator=gen).to(dev)
+    query = torch.randn(b, k, generator=gen).to(dev)
+    ids = (torch.randint(1, 27_279, (b, p), generator=gen)
+           * (torch.rand(b, p, generator=gen) >= 0.315)).to(dev)
+    dout = torch.randn(b, k, generator=gen).to(dev)
+    keep = 0.9
+    draw = torch.Generator(device=dev).manual_seed(5)
+    rands = [torch.rand((rows, h), generator=draw, device=dev)
+             for h in widths]
+    (w1, b1), (w2, b2) = [(l["w"], l["b"]) for l in params["mlp"]]
+    w_out, b_out = params["out"]["w"], params["out"]["b"]
+    x = da.build_reference(hist, query)
+    z1 = x @ w1
+    a1 = da.epilogue_reference(z1, b1, rands[0], keep)
+    z2 = a1 @ w2
+    a2 = da.epilogue_reference(z2, b2, rands[1], keep)
+    m = a2 @ w_out
+    _, wgt = da.pool_reference(hist, ids, m, b_out)
+    dz2, _, _, _ = da.head_backward_reference(dout, hist, ids, a2, w_out,
+                                              keep, True)
+    da1 = dz2 @ w2.t()
+    dz1, _ = da.epilogue_backward_reference(da1, a1, keep)
+    dx = dz1 @ w1.t()
+    parts = da.partials(rows, [widths[0], widths[1], widths[1], 1], dev)
+    # the in-place kernels' buffers: their first call is checked, later
+    # calls only timed
+    z1b, z2b, da1b = z1.clone(), z2.clone(), da1.clone()
+    f4, i8 = 4, 8                       # bytes of a float32 and of an id
+    cases = [
+        ("din_build", lambda: da.build(hist, query),
+         lambda: da.build_reference(hist, query),
+         f4 * (rows * k + b * k + rows * 4 * k), "bitwise"),
+        ("din_epilogue (80)", lambda: da.epilogue(z1b, b1, rands[0], keep),
+         lambda: da.epilogue_reference(z1, b1, rands[0], keep),
+         f4 * 3 * rows * widths[0], "bitwise"),
+        ("din_epilogue (40)", lambda: da.epilogue(z2b, b2, rands[1], keep),
+         lambda: da.epilogue_reference(z2, b2, rands[1], keep),
+         f4 * 3 * rows * widths[1], "bitwise"),
+        ("din_pool + sum", lambda: da.pool(hist, ids, m, b_out),
+         lambda: da.pool_reference(hist, ids, m, b_out),
+         f4 * (3 * rows * k + 2 * rows + b * k) + i8 * rows, "bitwise"),
+        ("din_head_backward", lambda: da.head_backward_kernel(
+            dout, hist, ids, a2, w_out, keep, True, *parts[1:]),
+         lambda: da.head_backward_reference(dout, hist, ids, a2, w_out,
+                                            keep, True)[0],
+         f4 * (rows * k + 2 * rows * widths[1]) + i8 * rows, "1e-6"),
+        ("din_epilogue_backward", lambda: da.epilogue_backward_kernel(
+            da1b, a1, keep, parts[0]),
+         lambda: da.epilogue_backward_reference(da1, a1, keep)[0],
+         f4 * 3 * rows * widths[0], "1e-6"),
+        ("din_fold", lambda: da.fold_kernel(dx, dout, hist, query, ids, wgt),
+         lambda: da.fold_reference(dx, dout, hist, query, ids, wgt),
+         f4 * (rows * 4 * k + 2 * rows * k + rows) + i8 * rows, "1e-6"),
+        ("din_column_sums", lambda: da.column_sums_kernel(parts, dev),
+         lambda: [t.sum(dim=0) for t in parts],
+         8 * sum(t.numel() for t in parts), "1e-6"),
+    ]
+    out = {}
+    for name, kern, plain, nbytes, want in cases:
+        launches = da.LAUNCHES
+        got = kern()
+        launches = da.LAUNCHES - launches
+        ref = plain()
+        got = got if isinstance(got, (tuple, list)) else (got,)
+        ref = ref if isinstance(ref, (tuple, list)) else (ref,)
+        if want == "bitwise":
+            ok = all(torch.equal(g, r) for g, r in zip(got, ref, strict=True))
+            err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+        else:
+            err = max(float((g.double() - r.double()).norm())
+                      / max(float(r.double().norm()), 1e-30)
+                      for g, r in zip(got, ref, strict=True))
+            ok = err <= 1e-6
+        _check(ok and launches == 1,
+               f"{name}: {launches} launches, differs from the plain version "
+               f"by {err} (want {want})")
+        t = [_graph_ms(f, DIN_UNIT_TIMED) for f in (plain, kern, kern, plain)]
+        k_ms, p_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+        host_ms, _ = _timed_pair(kern, plain, DIN_UNIT_TIMED)
+        b_ms, by = _bound(nbytes, 0)
+        out[name] = {"ms": k_ms, "plain_ms": p_ms, "host_ms": host_ms,
+                     "bound_ms": b_ms, "bound_by": by, "max_err": err,
+                     "launches_a_call": launches, "library_ms": None}
+        print(f"din attention {name}: device ms a call in a CUDA graph: "
+              f"kernel {k_ms:.4f} (plain, kernel, kernel, plain: "
+              f"{', '.join('%.4f' % v for v in t)}), plain {p_ms:.4f}, "
+              f"back to back {host_ms:.4f}, bound {b_ms:.4f} ({by}: "
+              f"{b_ms / k_ms:.1%} of it); {want} against the plain version "
+              f"(max error {err:.3e})", flush=True)
+
+    def unit(run, g):
+        leaves = [t.detach().requires_grad_() for t in
+                  (hist, query, w1, b1, w2, b2, w_out, b_out)]
+        h, q, *w = leaves
+        live = {"mlp": [{"w": w[0], "b": w[1]}, {"w": w[2], "b": w[3]}],
+                "out": {"w": w[4], "b": w[5]}}
+        y = run(live, h, q, g)
+        return (y, *torch.autograd.grad(y, leaves, dout))
+
+    def kern_run(w, h, q, g):
+        return da.din_attention_unit(w, h, ids, q, train=True,
+                                     dropout_rate=0.1, gen=g)
+
+    def plain_run(w, h, q, g):
+        return interactions.din_attention_plain(w, h, ids, q, train=True,
+                                                dropout_rate=0.1, gen=g)
+
+    got, ref = [unit(run, torch.Generator(device=dev).manual_seed(5))
+                for run in (kern_run, plain_run)]
+    # a capture draws from the card's default generator, which it registers
+    default = torch.cuda.default_generators[torch.cuda.current_device()]
+
+    def kern_unit():
+        return unit(kern_run, default)
+
+    def plain_unit():
+        return unit(plain_run, default)
+
+    _check(torch.equal(got[0], ref[0]), "din attention unit: the forward "
+           "differs from the plain unit's")
+    err = max(float((g.double() - r.double()).norm())
+              / max(float(r.double().norm()), 1e-30)
+              for g, r in zip(got[1:], ref[1:]))
+    _check(err <= 1e-6, f"din attention unit: gradients differ by {err}")
+    t = [_graph_ms(f, 5) for f in (plain_unit, kern_unit, kern_unit,
+                                   plain_unit)]
+    out["unit"] = {"ms": (t[1] + t[2]) / 2, "plain_ms": (t[0] + t[3]) / 2,
+                   "max_grad_err": err}
+    print(f"din attention unit, forward and backward (B={b}, P={p}, K={k}, "
+          f"80-40): device ms a call in a CUDA graph: Function "
+          f"{out['unit']['ms']:.4f}, plain unit with autograd "
+          f"{out['unit']['plain_ms']:.4f} (plain, Function, Function, "
+          f"plain: {', '.join('%.4f' % v for v in t)}); forward bitwise, "
+          f"gradients within {err:.2e} of each one's norm", flush=True)
     return out
 
 
@@ -1868,6 +2040,7 @@ def din_train_phase(train, evald, dev, rg, ss) -> dict:
     (host-fed batches) → counts and numbers of the main path's run."""
     from recsys_tpu_torch.core import tree
     from recsys_tpu_torch.core.config import TrainConfig
+    from recsys_tpu_torch.ops import din_attention
     from recsys_tpu_torch.tools import train_din
     from recsys_tpu_torch.train import fast, loop
     from recsys_tpu_torch.train import train_state as TS
@@ -1887,7 +2060,8 @@ def din_train_phase(train, evald, dev, rg, ss) -> dict:
                              device=dev)["auc"]
         del ts0
         torch.cuda.synchronize()
-        counters = {"segment_sum": ss, "row_gather": rg}
+        counters = {"segment_sum": ss, "row_gather": rg,
+                    "din_attention": din_attention}
         _zero(counters)                  # the training path starts here
         m = loop.train_and_evaluate(
             model, train_din.batch_iter(train, b, cfg.seed), eval_fn, cfg,
@@ -1912,6 +2086,11 @@ def din_train_phase(train, evald, dev, rg, ss) -> dict:
            f"DIN: {counts['row_gather']} row-gather launches for "
            f"{DIN_STEPS} steps and {n_eval} eval batches, want "
            f"{5 * (DIN_STEPS + n_eval)}")
+    # 8 kernels a unit a training step, 4 an eval batch (two units each)
+    want = 16 * DIN_STEPS + 8 * n_eval
+    _check(counts["din_attention"] == want,
+           f"DIN: {counts['din_attention']} attention-unit launches for "
+           f"{DIN_STEPS} steps and {n_eval} eval batches, want {want}")
     _check(m["auc"] >= auc0 + AUC_MARGIN,
            f"DIN: eval AUC {m['auc']} after training, {auc0} before")
     _check(f"step_{DIN_STEPS}" in ckpts, f"DIN: checkpoints {ckpts}")
@@ -3220,6 +3399,7 @@ def main() -> None:
     from recsys_tpu_torch.models.din import CATE_VOCAB, ITEM_VOCAB
     from recsys_tpu_torch.ops import adam_update as au
     from recsys_tpu_torch.ops import cin_kernel, cuda_build
+    from recsys_tpu_torch.ops import din_attention as da
     from recsys_tpu_torch.ops import reshape_probe as rp
     from recsys_tpu_torch.ops import row_gather as rg
     from recsys_tpu_torch.ops import segment_sum as ss
@@ -3236,7 +3416,7 @@ def main() -> None:
     t_start = time.perf_counter()
 
     sources = [cin_kernel.SOURCE, cin_kernel.BWD_SOURCE, ss.SOURCE, rg.SOURCE,
-               rp.SOURCE, au.SOURCE]
+               rp.SOURCE, au.SOURCE, da.SOURCE]
     libs = cuda_build.build_all(sources)
     print(f"built {len(libs)} kernel sources in parallel in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
@@ -3262,6 +3442,7 @@ def main() -> None:
     gat = row_gather_phase(rg, ccfg, dev)
     probe = reshape_probe_phase(rp, dev)
     adam = adam_update_phase(au, ccfg, dev)
+    din_attn = din_attention_phase(da, dev)
     print(f"kernel phases ok [{card}]: CIN fwd {fwd['ms']:.4f} ms vs plain "
           f"{fwd['plain_ms']:.4f} ms ({fwd['graph_ms']:.4f} ms of device "
           f"time), CIN bwd {bwd['ms']:.4f} ms vs plain "
@@ -3521,7 +3702,20 @@ def main() -> None:
          "leaves": trained["DeepFM"]["counts"]["adam_leaves"],
          "trees": adam,
          **{k: adam["deepfm"][k] for k in ("ms", "plain_ms", "library_ms",
-                                           "bound_ms", "bound_by")}}]}))
+                                           "bound_ms", "bound_by")}},
+        {"name": "din_attention", "route": "cuda",
+         "source": "recsys_tpu_torch/csrc/din_attention.cu",
+         "replaces": None,
+         "note": "replaces no TPU kernel (XLA fuses the JAX package's DIN "
+                 "unit); seven kernels round the unit's cuBLAS products; "
+                 "kernels: each one's device ms a call in a CUDA graph of "
+                 f"{DIN_UNIT_TIMED} at the DIN cell's shapes {DIN_UNIT}, "
+                 "plain_ms its plain version's, host_ms back to back; "
+                 "unit: one unit's forward and backward, the Function "
+                 "against autograd over the plain unit; launches: DIN "
+                 "training (8 a unit a step, 4 an eval batch)",
+         "launches": din["counts"]["din_attention"],
+         "kernels": din_attn}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from recsys_tpu_torch.ops import cin_kernel, nn
+from recsys_tpu_torch.ops import din_attention as din_attention_op
 from recsys_tpu_torch.utils import profiling
 
 
@@ -112,10 +113,27 @@ def din_attention(params, hist_emb: torch.Tensor, hist_ids: torch.Tensor,
     hist_emb [B, P, K], hist_ids [B, P], query_emb [B, K]. A padded
     position adds exactly zero, so padding P further leaves the result
     unchanged. In train mode ``counter`` (of `ATTENTION_COUNTS`) adds the
-    rows and the real positions on the device."""
-    b, p, k = hist_emb.shape
+    rows and the real positions on the device.
+
+    CUDA tensors take `din_attention_op.din_attention_unit`: the same
+    products, the work round them in hand-written kernels, the same
+    forward bitwise; other tensors take `din_attention_plain`."""
+    b, p, _ = hist_emb.shape
     if train and counter is not None:
         counter.add(hist_ids, b * p, torch.count_nonzero(hist_ids))
+    unit = (din_attention_op.din_attention_unit if hist_emb.is_cuda
+            else din_attention_plain)
+    return unit(params, hist_emb, hist_ids, query_emb, train=train,
+                dropout_rate=dropout_rate, gen=gen)
+
+
+def din_attention_plain(params, hist_emb: torch.Tensor,
+                        hist_ids: torch.Tensor, query_emb: torch.Tensor, *,
+                        train: bool = False, dropout_rate: float = 0.0,
+                        gen: torch.Generator | None = None) -> torch.Tensor:
+    """`din_attention`'s unit in plain PyTorch on any device: the CPU's
+    path, and the reference the card's kernels are held to."""
+    b, p, k = hist_emb.shape
     query = query_emb[:, None, :].expand(b, p, k)
     h = torch.cat([hist_emb, query, hist_emb * query, hist_emb - query],
                   dim=-1).reshape(b * p, 4 * k)

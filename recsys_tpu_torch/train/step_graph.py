@@ -50,13 +50,14 @@ from __future__ import annotations
 import torch
 
 from recsys_tpu_torch.ops import (adam_update, cin_kernel, cuda_build,
-                                  row_gather, segment_sum)
+                                  din_attention, row_gather, segment_sum)
 
 #: (module, name) of the counters of every kernel wrapper a training or
 #: eval step reaches: launches, and the leaves Adam's launches covered
 COUNTERS = ((segment_sum, "LAUNCHES"), (row_gather, "LAUNCHES"),
             (cin_kernel, "LAUNCHES"), (cin_kernel, "BWD_LAUNCHES"),
-            (adam_update, "LAUNCHES"), (adam_update, "LEAVES"))
+            (adam_update, "LAUNCHES"), (adam_update, "LEAVES"),
+            (din_attention, "LAUNCHES"))
 
 
 def _tallied(tally: dict) -> list[int]:
