@@ -23,33 +23,19 @@ from __future__ import annotations
 
 import ctypes
 import numbers
-import threading
 
 import torch
 
 from recsys_tpu_torch.ops import cuda_build
+from recsys_tpu_torch.ops.cuda_build import F, I, LL, P
 
-SOURCE = cuda_build.source("adam_update.cu")
+#: launches count under ``adam_update``, the leaves they covered under
+#: ``adam_update.leaves`` (`cuda_build.launches`)
+SOURCE = cuda_build.source(
+    "adam_update.cu",
+    adam_update=[I] + [ctypes.POINTER(LL)] * 5 + [P] * 2 + [F] * 5 + [P])
 #: leaves one launch covers (``MAX_LEAVES`` of csrc/adam_update.cu)
 MAX_LEAVES = 64
-
-#: Kernel launches made by `adam_update`, and the leaves they covered (plain
-#: counts; read them to show that a run went through the kernel, reset them
-#: by assigning 0).
-LAUNCHES = 0
-LEAVES = 0
-_count_lock = threading.Lock()
-
-
-def _lib() -> ctypes.CDLL:
-    lib = cuda_build.load(SOURCE)
-    if lib.adam_update.argtypes is None:
-        lib.adam_update.argtypes = (
-            [ctypes.c_int] + [ctypes.POINTER(ctypes.c_longlong)] * 5
-            + [ctypes.c_void_p] * 2 + [ctypes.c_float] * 5
-            + [ctypes.c_void_p])
-        lib.adam_update.restype = ctypes.c_int
-    return lib
 
 
 @torch.no_grad()
@@ -111,7 +97,6 @@ def adam_update(params, grads, mu, nu, lr_t, lr_wd, b1: float, b2: float,
 
     CUDA tensors go through the kernel; the call raises if it cannot
     launch. CPU tensors go through `adam_update_reference`."""
-    global LAUNCHES, LEAVES
     _check(params, grads, mu, nu)
     if not len(params):
         return
@@ -134,18 +119,9 @@ def adam_update(params, grads, mu, nu, lr_t, lr_wd, b1: float, b2: float,
             *(leaves[i].data_ptr() for i in live))
 
     sizes = (ctypes.c_longlong * len(live))(*(params[i].numel() for i in live))
-    lib = _lib()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.adam_update(
-            len(live), addresses(params), addresses(grads), addresses(mu),
-            addresses(nu), sizes, lr_t.data_ptr(),
-            None if lr_wd is None else lr_wd.data_ptr(), b1, 1 - b1, b2,
-            1 - b2, eps, stream)
-    cuda_build.check(lib, err, "adam_update")
-    launches = -(-len(live) // MAX_LEAVES)
-    with _count_lock:
-        LAUNCHES += launches
-        LEAVES += len(live)
-    cuda_build.tally_launch(f"{__name__}.LAUNCHES", stream, launches)
-    cuda_build.tally_launch(f"{__name__}.LEAVES", stream, len(live))
+    stream = cuda_build.launch(
+        SOURCE, "adam_update", device, len(live), addresses(params),
+        addresses(grads), addresses(mu), addresses(nu), sizes,
+        lr_t.data_ptr(), None if lr_wd is None else lr_wd.data_ptr(), b1,
+        1 - b1, b2, 1 - b2, eps, n=-(-len(live) // MAX_LEAVES))
+    cuda_build.count("adam_update.leaves", stream, len(live))

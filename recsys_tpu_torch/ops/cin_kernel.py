@@ -22,43 +22,20 @@ The kernels are built at first use (`cuda_build`).
 
 from __future__ import annotations
 
-import ctypes
-import threading
-
 import torch
 
 from recsys_tpu_torch.ops import cuda_build
+from recsys_tpu_torch.ops.cuda_build import I, P
 
-SOURCE = cuda_build.source("cin_layer.cu")
-BWD_SOURCE = cuda_build.source("cin_backward.cu")
+#: forward launches count under ``cin_fwd``, backward ones under ``cin_bwd``
+#: (`cuda_build.launches`)
+SOURCE = cuda_build.source("cin_layer.cu",
+                           cin_layer_fwd=[P] * 5 + [I] * 4 + [P])
+BWD_SOURCE = cuda_build.source("cin_backward.cu",
+                               cin_layer_bwd=[P] * 11 + [I] * 6 + [P])
 MAX_H = 32   # accumulators per thread (both sources instantiate H = 1..32)
 _SMS = 132             # the H100 SXM's SMs: the dW pass's groups fill them
 _DW_MIN_ROWS = 64      # rows per dW partial sum, at least
-
-#: Forward kernel launches made by `cin_layer_fwd`, and backward kernel
-#: launches made by `cin_layer_bwd` (plain counts; read them to show that a
-#: run went through the kernels, reset them by assigning 0).
-LAUNCHES = 0
-BWD_LAUNCHES = 0
-_count_lock = threading.Lock()
-
-
-def _fwd_lib() -> ctypes.CDLL:
-    lib = cuda_build.load(SOURCE)
-    if lib.cin_layer_fwd.argtypes is None:
-        lib.cin_layer_fwd.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-        lib.cin_layer_fwd.restype = ctypes.c_int
-    return lib
-
-
-def _bwd_lib() -> ctypes.CDLL:
-    lib = cuda_build.load(BWD_SOURCE)
-    if lib.cin_layer_bwd.argtypes is None:
-        lib.cin_layer_bwd.argtypes = (
-            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-        lib.cin_layer_bwd.restype = ctypes.c_int
-    return lib
 
 
 def cin_layer_reference(x0v: torch.Tensor, xkv: torch.Tensor,
@@ -114,16 +91,11 @@ def _check(x0v, xkv, w, **others) -> None:
         raise ValueError(f"cin_layer: N={n} rows overflow 32-bit indexing")
 
 
-def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
 def cin_layer_fwd(x0v: torch.Tensor, xkv: torch.Tensor, w: torch.Tensor,
                   b: torch.Tensor) -> torch.Tensor:
     """One CIN layer forward relu(outer(x0v, xkv) @ w + b) → [N, H] float32,
     outside autograd. CUDA tensors go through the kernel (the call raises if
     it cannot launch); CPU tensors through `cin_layer_reference`."""
-    global LAUNCHES
     _check(x0v, xkv, w, b=b)
     if x0v.device.type == "cpu":
         return cin_layer_reference(x0v, xkv, w, b)
@@ -134,16 +106,9 @@ def cin_layer_fwd(x0v: torch.Tensor, xkv: torch.Tensor, w: torch.Tensor,
     y = torch.empty((n, h), dtype=torch.float32, device=x0v.device)
     if n == 0:
         return y
-    lib = _fwd_lib()
-    stream = _stream(x0v.device)
-    with torch.cuda.device(x0v.device):
-        err = lib.cin_layer_fwd(x0v.data_ptr(), xkv.data_ptr(), w.data_ptr(),
-                                b.data_ptr(), y.data_ptr(), n, f0, fk, h,
-                                stream)
-    cuda_build.check(lib, err, "cin_layer_fwd")
-    with _count_lock:
-        LAUNCHES += 1
-    cuda_build.tally_launch(f"{__name__}.LAUNCHES", stream)
+    cuda_build.launch(SOURCE, "cin_layer_fwd", x0v.device, x0v.data_ptr(),
+                      xkv.data_ptr(), w.data_ptr(), b.data_ptr(),
+                      y.data_ptr(), n, f0, fk, h, counter="cin_fwd")
     return y
 
 
@@ -180,7 +145,6 @@ def cin_layer_bwd(x0v: torch.Tensor, xkv: torch.Tensor, w: torch.Tensor,
     (the ReLU mask) and the output gradient ``dy`` → (dx0, dxk, dw, db).
     CUDA tensors go through the kernel (the call raises if it cannot
     launch); CPU tensors through `cin_layer_backward_reference`."""
-    global BWD_LAUNCHES
     _check(x0v, xkv, w, y=y, dy=dy)
     n, f0 = x0v.shape
     fk, h = xkv.shape[1], w.shape[1]
@@ -199,18 +163,12 @@ def cin_layer_bwd(x0v: torch.Tensor, xkv: torch.Tensor, w: torch.Tensor,
     part_floats = groups * _dw_part_floats(f0, fk, h)   # a multiple of 4
     work = torch.empty(part_floats + _wt_floats(f0, fk, h),
                        dtype=torch.float32, device=dev)
-    lib = _bwd_lib()
-    stream = _stream(dev)
-    with torch.cuda.device(dev):
-        err = lib.cin_layer_bwd(
-            x0v.data_ptr(), xkv.data_ptr(), w.data_ptr(), y.data_ptr(),
-            dy.data_ptr(), dx0.data_ptr(), dxk.data_ptr(), work.data_ptr(),
-            work[part_floats:].data_ptr(), dw.data_ptr(), db.data_ptr(), n,
-            f0, fk, h, groups, rows, stream)
-    cuda_build.check(lib, err, "cin_layer_bwd")
-    with _count_lock:
-        BWD_LAUNCHES += 1
-    cuda_build.tally_launch(f"{__name__}.BWD_LAUNCHES", stream)
+    cuda_build.launch(
+        BWD_SOURCE, "cin_layer_bwd", dev, x0v.data_ptr(), xkv.data_ptr(),
+        w.data_ptr(), y.data_ptr(), dy.data_ptr(), dx0.data_ptr(),
+        dxk.data_ptr(), work.data_ptr(), work[part_floats:].data_ptr(),
+        dw.data_ptr(), db.data_ptr(), n, f0, fk, h, groups, rows,
+        counter="cin_bwd")
     return dx0, dxk, dw, db
 
 

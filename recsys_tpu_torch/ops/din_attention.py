@@ -31,61 +31,35 @@ there too.
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import numpy as np
 import torch
 
 from recsys_tpu_torch.ops import cuda_build
+from recsys_tpu_torch.ops.cuda_build import F, I, P
 
-SOURCE = cuda_build.source("din_attention.cu")
+#: every kernel's launch counts under ``din_attention``
+#: (`cuda_build.launches`); a unit with n hidden layers launches n + 2
+#: kernels forward and max(n, 1) + 2 backward
+SOURCE = cuda_build.source(
+    "din_attention.cu",
+    din_build=[P] * 3 + [I] * 3 + [P],
+    din_epilogue=[P] * 3 + [I] * 2 + [F] * 2 + [P],
+    din_pool=[P] * 6 + [I] * 3 + [P],
+    din_head_backward=[P] * 9 + [I] * 6 + [F, P],
+    din_epilogue_backward=[P] * 3 + [I] * 3 + [F, P],
+    din_fold=[P] * 8 + [I] * 3 + [P],
+    din_column_sums=[I] + [ctypes.POINTER(ctypes.c_longlong)] * 2
+    + [ctypes.POINTER(I)] * 2 + [P])
 #: rows a block of the backward's column kernels takes (``ROWS`` of
 #: csrc/din_attention.cu): each writes one partial row of column sums
 ROWS_PER_BLOCK = 128
 #: index arithmetic on the card is 32-bit: R·max(4K, h_l) must stay below
 _MAX_ELEMS = 2 ** 31
 
-#: Kernel launches made by the wrappers (a plain count; read it to show that
-#: a run went through the kernels, reset it by assigning 0). A unit with n
-#: hidden layers launches n + 2 kernels forward and max(n, 1) + 2 backward.
-LAUNCHES = 0
-_count_lock = threading.Lock()
-
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {
-    "din_build": [_P] * 3 + [_I] * 3 + [_P],
-    "din_epilogue": [_P] * 3 + [_I] * 2 + [_F] * 2 + [_P],
-    "din_pool": [_P] * 6 + [_I] * 3 + [_P],
-    "din_head_backward": [_P] * 9 + [_I] * 6 + [_F, _P],
-    "din_epilogue_backward": [_P] * 3 + [_I] * 3 + [_F, _P],
-    "din_fold": [_P] * 8 + [_I] * 3 + [_P],
-    "din_column_sums": [_I] + [ctypes.POINTER(ctypes.c_longlong)] * 2
-    + [ctypes.POINTER(ctypes.c_int)] * 2 + [_P],
-}
-
-
-def _lib() -> ctypes.CDLL:
-    lib = cuda_build.load(SOURCE)
-    if lib.din_build.argtypes is None:
-        for name, args in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = args
-            fn.restype = ctypes.c_int
-    return lib
-
 
 def _launch(name: str, device: torch.device, *args) -> None:
-    """Run the C entry point ``name`` on ``device``'s current stream (its
-    last argument) and count one launch."""
-    global LAUNCHES
-    lib = _lib()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, name)(*args, stream)
-    cuda_build.check(lib, err, name)
-    with _count_lock:
-        LAUNCHES += 1
-    cuda_build.tally_launch(f"{__name__}.LAUNCHES", stream)
+    cuda_build.launch(SOURCE, name, device, *args, counter="din_attention")
 
 
 def _keep32(keep: float) -> tuple[float, float]:

@@ -18,31 +18,15 @@ wrappers take the plain version, ``2.0 * x.reshape(VP, W)``.
 
 from __future__ import annotations
 
-import ctypes
-import threading
-
 import torch
 
 from recsys_tpu_torch.ops import cuda_build
+from recsys_tpu_torch.ops.cuda_build import I, LL, P
 
-SOURCE = cuda_build.source("reshape_probe.cu")
-
-#: Kernel launches made by `via_reshape` and by `via_2d` (plain counts; read
-#: them to show that a run went through the kernel, reset them by assigning
-#: 0).
-VIA_RESHAPE_LAUNCHES = 0
-VIA_2D_LAUNCHES = 0
-_count_lock = threading.Lock()
-
-
-def _lib() -> ctypes.CDLL:
-    lib = cuda_build.load(SOURCE)
-    for fn in (lib.via_reshape, lib.via_2d):
-        if fn.argtypes is None:
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-    return lib
+#: launches count under ``via_reshape`` and ``via_2d``
+#: (`cuda_build.launches`)
+SOURCE = cuda_build.source("reshape_probe.cu", via_reshape=[P, P, LL, I, P],
+                           via_2d=[P, P, LL, I, P])
 
 
 def reshape_probe_reference(x: torch.Tensor, width: int) -> torch.Tensor:
@@ -63,12 +47,8 @@ def _check(x: torch.Tensor, width: int, what: str) -> None:
 def _launch(entry: str, x: torch.Tensor, width: int) -> torch.Tensor:
     rows = x.numel() // width
     out = torch.empty((rows, width), dtype=torch.float32, device=x.device)
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = getattr(lib, entry)(x.data_ptr(), out.data_ptr(), rows, width,
-                                  stream)
-    cuda_build.check(lib, err, entry)
+    cuda_build.launch(SOURCE, entry, x.device, x.data_ptr(), out.data_ptr(),
+                      rows, width)
     return out
 
 
@@ -77,7 +57,6 @@ def via_reshape(flat: torch.Tensor, width: int) -> torch.Tensor:
 
     CUDA tensors go through the kernel; the call raises if it cannot
     launch. CPU tensors go through `reshape_probe_reference`."""
-    global VIA_RESHAPE_LAUNCHES
     if flat.dim() != 1:
         raise ValueError(f"via_reshape: want flat [VP·W], got "
                          f"{tuple(flat.shape)}")
@@ -86,10 +65,7 @@ def via_reshape(flat: torch.Tensor, width: int) -> torch.Tensor:
         return reshape_probe_reference(flat, width)
     if flat.device.type != "cuda":
         raise ValueError(f"via_reshape: no kernel for device {flat.device}")
-    out = _launch("via_reshape", flat, width)
-    with _count_lock:
-        VIA_RESHAPE_LAUNCHES += 1
-    return out
+    return _launch("via_reshape", flat, width)
 
 
 def via_2d(x: torch.Tensor) -> torch.Tensor:
@@ -97,7 +73,6 @@ def via_2d(x: torch.Tensor) -> torch.Tensor:
 
     CUDA tensors go through the kernel; the call raises if it cannot
     launch. CPU tensors go through `reshape_probe_reference`."""
-    global VIA_2D_LAUNCHES
     if x.dim() != 2:
         raise ValueError(f"via_2d: want x [VP, W], got {tuple(x.shape)}")
     _check(x, x.shape[1], "via_2d")
@@ -105,7 +80,4 @@ def via_2d(x: torch.Tensor) -> torch.Tensor:
         return reshape_probe_reference(x, x.shape[1])
     if x.device.type != "cuda":
         raise ValueError(f"via_2d: no kernel for device {x.device}")
-    out = _launch("via_2d", x, x.shape[1])
-    with _count_lock:
-        VIA_2D_LAUNCHES += 1
-    return out
+    return _launch("via_2d", x, x.shape[1])

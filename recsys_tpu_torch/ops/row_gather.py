@@ -16,29 +16,14 @@ them on the host). For CPU tensors the wrapper takes the plain version,
 
 from __future__ import annotations
 
-import ctypes
-import threading
-
 import torch
 
 from recsys_tpu_torch.ops import cuda_build
+from recsys_tpu_torch.ops.cuda_build import I, LL, P
 
-SOURCE = cuda_build.source("row_gather.cu")
-
-#: Kernel launches made by `row_gather` (a plain count; read it to show that
-#: a run went through the kernel, reset it by assigning 0).
-LAUNCHES = 0
-_count_lock = threading.Lock()
-
-
-def _lib() -> ctypes.CDLL:
-    lib = cuda_build.load(SOURCE)
-    if lib.row_gather.argtypes is None:
-        lib.row_gather.argtypes = (
-            [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
-                                     ctypes.c_longlong, ctypes.c_void_p])
-        lib.row_gather.restype = ctypes.c_int
-    return lib
+#: a launch counts under ``row_gather`` (`cuda_build.launches`)
+SOURCE = cuda_build.source("row_gather.cu",
+                           row_gather=[P, P, P, LL, I, LL, P])
 
 
 def row_gather_reference(table: torch.Tensor,
@@ -69,7 +54,6 @@ def row_gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
     CUDA tensors go through the kernel; the call raises if it cannot
     launch. CPU tensors go through `row_gather_reference`."""
-    global LAUNCHES
     _check(table, ids)
     if table.device.type == "cpu":
         return row_gather_reference(table, ids)
@@ -79,13 +63,6 @@ def row_gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     out = torch.empty((n, w), dtype=torch.float32, device=table.device)
     if n == 0:
         return out
-    lib = _lib()
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream(table.device).cuda_stream
-        err = lib.row_gather(table.data_ptr(), ids.data_ptr(), out.data_ptr(),
-                             n, w, table.shape[0], stream)
-    cuda_build.check(lib, err, "row_gather")
-    with _count_lock:
-        LAUNCHES += 1
-    cuda_build.tally_launch(f"{__name__}.LAUNCHES", stream)
+    cuda_build.launch(SOURCE, "row_gather", table.device, table.data_ptr(),
+                      ids.data_ptr(), out.data_ptr(), n, w, table.shape[0])
     return out

@@ -22,39 +22,25 @@ the plain version, ``index_add_`` into zeros (which raises on such an id).
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
 from recsys_tpu_torch.ops import cuda_build
+from recsys_tpu_torch.ops.cuda_build import I, LL, P
 
-SOURCE = cuda_build.source("segment_sum.cu")
+#: a launch with ids counts under ``segment_sum`` (`cuda_build.launches`)
+SOURCE = cuda_build.source(
+    "segment_sum.cu",
+    segment_sum=[P, P, P, P, ctypes.c_ulonglong, LL, I, LL, I, P],
+    segment_sum_workspace_bytes=[LL, I, I,
+                                 ctypes.POINTER(ctypes.c_ulonglong)])
 #: The kernel's int32 limits: at most MAX_IDS ids, at most MAX_ROWS rows
 #: (the out-of-range sentinel is ``num_rows`` itself).
 MAX_IDS = 2 ** 31 - 1
 MAX_ROWS = 2 ** 31 - 2
 
-#: Kernel launches made by `segment_sum` (a plain count; read it to show that
-#: a run went through the kernel, reset it by assigning 0).
-LAUNCHES = 0
-_count_lock = threading.Lock()
 #: workspace bytes by (n, w, end_bit)
 _workspace: dict[tuple[int, int, int], int] = {}
-
-
-def _lib() -> ctypes.CDLL:
-    lib = cuda_build.load(SOURCE)
-    if lib.segment_sum.argtypes is None:
-        lib.segment_sum.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_ulonglong, ctypes.c_longlong,
-                                     ctypes.c_int, ctypes.c_longlong,
-                                     ctypes.c_int, ctypes.c_void_p])
-        lib.segment_sum.restype = ctypes.c_int
-        lib.segment_sum_workspace_bytes.argtypes = [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-            ctypes.POINTER(ctypes.c_ulonglong)]
-        lib.segment_sum_workspace_bytes.restype = ctypes.c_int
-    return lib
 
 
 def key_bits(num_rows: int) -> int:
@@ -93,10 +79,11 @@ def _check(ids: torch.Tensor, grads: torch.Tensor, num_rows: int) -> None:
                          f"{MAX_ROWS} rows (32-bit keys and positions)")
 
 
-def _workspace_bytes(lib: ctypes.CDLL, n: int, w: int, end_bit: int) -> int:
+def _workspace_bytes(n: int, w: int, end_bit: int) -> int:
     key = (n, w, end_bit)
     size = _workspace.get(key)
     if size is None:
+        lib = cuda_build.load(SOURCE)
         out = ctypes.c_ulonglong()
         err = lib.segment_sum_workspace_bytes(n, w, end_bit,
                                               ctypes.byref(out))
@@ -112,7 +99,6 @@ def segment_sum(ids: torch.Tensor, grads: torch.Tensor,
     CUDA tensors go through the kernel; the call raises if it cannot launch.
     CPU tensors go through `segment_sum_reference`. On the card an id
     outside ``[0, num_rows)`` adds nothing; callers keep such ids away."""
-    global LAUNCHES
     _check(ids, grads, num_rows)
     if ids.device.type == "cpu":
         return segment_sum_reference(ids, grads, num_rows)
@@ -120,18 +106,11 @@ def segment_sum(ids: torch.Tensor, grads: torch.Tensor,
         raise ValueError(f"segment_sum: no kernel for device {ids.device}")
     n, w = grads.shape
     end_bit = key_bits(num_rows)
-    lib = _lib()
     out = torch.empty((num_rows, w), dtype=torch.float32, device=ids.device)
-    ws = torch.empty((_workspace_bytes(lib, n, w, end_bit),),
-                     dtype=torch.uint8, device=ids.device)
-    with torch.cuda.device(ids.device):
-        stream = torch.cuda.current_stream(ids.device).cuda_stream
-        err = lib.segment_sum(ids.data_ptr(), grads.data_ptr(),
-                              out.data_ptr(), ws.data_ptr(), ws.numel(), n, w,
-                              num_rows, end_bit, stream)
-    cuda_build.check(lib, err, "segment_sum")
-    if n:
-        with _count_lock:
-            LAUNCHES += 1
-        cuda_build.tally_launch(f"{__name__}.LAUNCHES", stream)
+    ws = torch.empty((_workspace_bytes(n, w, end_bit),), dtype=torch.uint8,
+                     device=ids.device)
+    # N = 0 zeroes the output, and counts as no launch of the sum
+    cuda_build.launch(SOURCE, "segment_sum", ids.device, ids.data_ptr(),
+                      grads.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                      ws.numel(), n, w, num_rows, end_bit, n=1 if n else 0)
     return out

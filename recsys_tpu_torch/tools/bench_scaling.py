@@ -34,10 +34,9 @@ import subprocess
 import sys
 import tempfile
 
-#: NVIDIA H100 SXM published specifications (not measurements)
-H100_HBM_BYTES_PER_S = 3.35e12
-H100_FP32_FLOPS_PER_S = 67e12
-H100_NVLINK_BYTES_PER_S = 450e9     # per direction
+#: NVIDIA H100 SXM published NVLink bandwidth per direction (not measured;
+#: its memory and float32 peaks are ``utils/profiling.py``'s)
+H100_NVLINK_BYTES_PER_S = 450e9
 WORKER_TIMEOUT_S = 600.0
 
 
@@ -191,7 +190,7 @@ def collective_sizes(batch: int, model_axis: int, width: int,
 def scaling_model(batch_per_chip: int = 16384, model_axis: int = 1,
                   n_chips: int = 4) -> dict:
     """An analytic per-step model of DeepFM (dim 16) on ``n_chips`` H100s
-    from their published specifications (`H100_*`; not measured). Per
+    from their published specifications (not measured). Per
     card per step: compute ≈ 6·B·Σ(fan_in·fan_out) float32 operations;
     memory: Adam's dense pass over the table and its moments (≈ 7 passes
     of V/model_axis × 17 × 4 B) plus the batch's gathers; NVLink: the
@@ -199,6 +198,8 @@ def scaling_model(batch_per_chip: int = 16384, model_axis: int = 1,
     × its bytes. The step is the largest of the three; the table terms
     dominate, and both shrink with ``model_axis``."""
     from recsys_tpu_torch.core.config import CriteoConfig
+    from recsys_tpu_torch.utils.profiling import (FP32_FLOPS_PER_S,
+                                                  HBM_BYTES_PER_S)
 
     v = CriteoConfig().total_vocab
     w = 17
@@ -207,8 +208,8 @@ def scaling_model(batch_per_chip: int = 16384, model_axis: int = 1,
     hbm = 7 * (v // model_axis) * w * 4 + b * 39 * w * 4 * 3
     data_axis = max(1, n_chips // model_axis)
     wire = 2 * (data_axis - 1) / data_axis * (v // model_axis) * w * 4
-    t = {"compute": flops / H100_FP32_FLOPS_PER_S,
-         "hbm": hbm / H100_HBM_BYTES_PER_S,
+    t = {"compute": flops / FP32_FLOPS_PER_S,
+         "hbm": hbm / HBM_BYTES_PER_S,
          "nvlink": wire / H100_NVLINK_BYTES_PER_S}
     t_step = max(t.values())
     return {

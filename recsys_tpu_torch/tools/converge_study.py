@@ -88,16 +88,17 @@ def run(name: str, ceil: dict, eval_data: dict, *, examples: int,
     """One protocol run of ``name`` → its JSON record (printed); xDeepFM's
     also holds its AUC with the dense values permuted and the live share
     of its linear branch at the start."""
-    from recsys_tpu_torch.ops import cin_kernel
+    from recsys_tpu_torch.ops import cuda_build
 
-    fwd0, bwd0 = cin_kernel.LAUNCHES, cin_kernel.BWD_LAUNCHES
-    model, ts, info = converge.train(name, examples=examples, batch=batch,
-                                     device=device, seed=seed, start=start)
-    q = converge.evaluate(model, ts, eval_data, batch, device)
+    with cuda_build.counting() as launches:
+        model, ts, info = converge.train(name, examples=examples,
+                                         batch=batch, device=device,
+                                         seed=seed, start=start)
+        q = converge.evaluate(model, ts, eval_data, batch, device)
     rec = {"model": name, "start": label, "seed": seed, "auc": q["auc"],
            "logloss": q["logloss"], "closure": closure(q["auc"], ceil),
-           "cin_kernel_launches": [cin_kernel.LAUNCHES - fwd0,
-                                   cin_kernel.BWD_LAUNCHES - bwd0], **info}
+           "cin_kernel_launches": [launches["cin_fwd"],
+                                   launches["cin_bwd"]], **info}
     if name == "xdeepfm":
         lin = start_lin_dense(seed)
         rec["dense_live_at_start"] = float(

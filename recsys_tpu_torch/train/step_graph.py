@@ -30,9 +30,10 @@ draws.
   on, so no other tensor can take over those addresses while it lives.
 - **Memory.** The graph's private memory pool goes with it: with a
   recapture, or when the scanned function that owns it is dropped.
-- **Launch counts.** The kernel wrappers count launches in Python, which
-  a replay does not run. The counts a capture adds are taken back, and
-  added again at every replay, so the counters count launches that ran.
+- **Launch counts.** The kernel wrappers count launches in Python
+  (`cuda_build.launch`), which a replay does not run. The counts a
+  capture adds to the registry, under whatever names, are taken back, and
+  added again at every replay, so the registry counts launches that ran.
   The capture learns its own counts from the tally of the stream it
   captures on (`cuda_build.launch_tally`; autograd's backward launches
   reach that stream from autograd's own thread), so launches that other
@@ -49,27 +50,7 @@ from __future__ import annotations
 
 import torch
 
-from recsys_tpu_torch.ops import (adam_update, cin_kernel, cuda_build,
-                                  din_attention, row_gather, segment_sum)
-
-#: (module, name) of the counters of every kernel wrapper a training or
-#: eval step reaches: launches, and the leaves Adam's launches covered
-COUNTERS = ((segment_sum, "LAUNCHES"), (row_gather, "LAUNCHES"),
-            (cin_kernel, "LAUNCHES"), (cin_kernel, "BWD_LAUNCHES"),
-            (adam_update, "LAUNCHES"), (adam_update, "LEAVES"),
-            (din_attention, "LAUNCHES"))
-
-
-def _tallied(tally: dict) -> list[int]:
-    """The launches of each of `COUNTERS` in a `cuda_build.launch_tally`."""
-    return [tally.get(f"{m.__name__}.{name}", 0) for m, name in COUNTERS]
-
-
-def _add_counts(deltas) -> None:
-    for (m, name), d in zip(COUNTERS, deltas):
-        if d:
-            with m._count_lock:
-                setattr(m, name, getattr(m, name) + d)
+from recsys_tpu_torch.ops import cuda_build
 
 
 def use_graph(graphed: bool | None, device: torch.device, name: str) -> bool:
@@ -107,7 +88,7 @@ class StepGraph:
         self._graph = None
         self._key = None
         self._held = None
-        self._deltas: list[int] = []
+        self._counts: dict[str, int] = {}
         #: the tensors the captured step reads and writes besides ``held``
         #: (index buffer, loss sum, metric state), set by `capture`
         self.static = None
@@ -159,10 +140,9 @@ class StepGraph:
             raise RuntimeError(f"{self.name}: CUDA graph capture failed: "
                                f"{e}") from e
         finally:
-            deltas = _tallied(tally)
-            _add_counts([-d for d in deltas])     # the capture ran nothing
+            cuda_build.recount(tally, -1)     # the capture ran nothing
         self._graph, self._key, self._held = graph, signature(held), held
-        self.static, self._deltas = static, deltas
+        self.static, self._counts = static, dict(tally)
 
     def replay(self) -> None:
         """One step: the graph's replay on the current stream."""
@@ -171,4 +151,4 @@ class StepGraph:
         except RuntimeError as e:
             raise RuntimeError(f"{self.name}: CUDA graph replay failed: "
                                f"{e}") from e
-        _add_counts(self._deltas)
+        cuda_build.recount(self._counts)

@@ -33,7 +33,6 @@ The training path records into whatever profiler is on:
 from __future__ import annotations
 
 import collections
-import ctypes
 import os
 import subprocess
 import threading
@@ -42,6 +41,7 @@ import torch
 from torch._C._profiler import _RecordFunctionFast
 
 from recsys_tpu_torch.ops import cuda_build
+from recsys_tpu_torch.ops.cuda_build import I, P
 
 #: the section boundaries of a training step, in order; mark ``m`` is the
 #: kernel ``recsys_mark_<m>``
@@ -51,7 +51,9 @@ MARKS = ("begin", "forward", "backward", "optimizer", "end")
 #: a trace's split of a replay by `MARKS` passes over it
 UNIT_MARKS = ("attention_forward", "attention_forward_end",
               "attention_backward", "attention_backward_end")
-MARK_SOURCE = cuda_build.source("step_marks.cu")
+#: a mark's launch counts under ``mark`` (`cuda_build.launches`)
+MARK_SOURCE = cuda_build.source("step_marks.cu", recsys_mark=[I, P],
+                                recsys_unit_mark=[I, P])
 
 
 def span(name: str):
@@ -62,15 +64,6 @@ def span(name: str):
     ``torch.profiler.record_function`` range would stand as a device
     operation over every kernel it encloses."""
     return _RecordFunctionFast(name)
-
-
-def _mark_lib() -> ctypes.CDLL:
-    lib = cuda_build.load(MARK_SOURCE)
-    if lib.recsys_mark.argtypes is None:
-        for fn in (lib.recsys_mark, lib.recsys_unit_mark):
-            fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-    return lib
 
 
 def mark(name: str, like: torch.Tensor) -> None:
@@ -85,18 +78,15 @@ def mark(name: str, like: torch.Tensor) -> None:
     nothing."""
     if like.device.type != "cuda":
         return
-    lib = _mark_lib()
+    cuda_build.load(MARK_SOURCE)
     if name in MARKS:
-        launch, which, kernel = lib.recsys_mark, MARKS.index(name), "mark"
+        entry, which = "recsys_mark", MARKS.index(name)
     else:
-        launch, which, kernel = (lib.recsys_unit_mark,
-                                 UNIT_MARKS.index(name), "unit")
+        entry, which = "recsys_unit_mark", UNIT_MARKS.index(name)
     with torch.cuda.device(like.device):
         if not torch.cuda.is_current_stream_capturing():
             return
-        stream = torch.cuda.current_stream(like.device).cuda_stream
-        err = launch(which, stream)
-    cuda_build.check(lib, err, f"recsys_{kernel}_{name}")
+    cuda_build.launch(MARK_SOURCE, entry, like.device, which, counter="mark")
 
 
 class _BackwardMark(torch.autograd.Function):
@@ -159,6 +149,12 @@ class DeviceCounter:
         if sums is None:
             return None
         return dict(zip(self.names, sums.tolist()))
+
+
+#: the H100 SXM's published peaks, the bounds the port's kernels and steps
+#: are held to: device-memory bandwidth, and float32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
 
 
 def card(device) -> str:

@@ -76,15 +76,15 @@ def test_update_is_the_loop_as_it_stood_bitwise(schedule, weight_decay):
 
 
 def test_cpu_tensors_take_the_plain_version_without_counting():
-    au.LAUNCHES = au.LEAVES = 0
     tree = _tree(1)
     want = [[t.clone() for t in leaves] for leaves in tree]
     lr_t = torch.tensor(1e-3)
-    au.adam_update(*tree, lr_t, None, 0.9, 0.999, 1e-8)
+    with cuda_build.counting() as launches:
+        au.adam_update(*tree, lr_t, None, 0.9, 0.999, 1e-8)
     au.adam_update_reference(*want, lr_t, None, 0.9, 0.999, 1e-8)
     for a, b in zip(sum(tree, []), sum(want, []), strict=True):
         assert torch.equal(a, b)
-    assert (au.LAUNCHES, au.LEAVES) == (0, 0)
+    assert (launches["adam_update"], launches["adam_update.leaves"]) == (0, 0)
     au.adam_update([], [], [], [], lr_t, None, 0.9, 0.999, 1e-8)   # no leaf
 
 
@@ -134,9 +134,9 @@ def test_the_kernel_source_carries_its_note():
 
 def test_a_tally_adds_a_count_of_launches():
     """A wrapper that counts several launches (or leaves) at once adds
-    them to the open tally of its stream in one call."""
-    with cuda_build.launch_tally(11) as tally:
-        cuda_build.tally_launch(f"{au.__name__}.LEAVES", 11, 15)
-        cuda_build.tally_launch(f"{au.__name__}.LAUNCHES", 11)
-    assert tally == {f"{au.__name__}.LEAVES": 15,
-                     f"{au.__name__}.LAUNCHES": 1}
+    them to the registry and to the open tally of its stream in one call."""
+    with cuda_build.counting() as launches, \
+            cuda_build.launch_tally(11) as tally:
+        cuda_build.count("adam_update.leaves", 11, 15)
+        cuda_build.count("adam_update", 11)
+    assert tally == launches == {"adam_update.leaves": 15, "adam_update": 1}

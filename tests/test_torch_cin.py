@@ -17,7 +17,7 @@ import torch
 
 from recsys_tpu.ops import interactions as jinter
 from recsys_tpu.ops import pallas_cin
-from recsys_tpu_torch.ops import cin_kernel
+from recsys_tpu_torch.ops import cin_kernel, cuda_build
 from recsys_tpu_torch.ops import interactions as tinter
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -114,13 +114,13 @@ def test_cin_layer_rejects_what_the_kernel_does_not_take(bad):
 
 
 def test_cpu_tensors_take_the_plain_version_without_counting():
-    cin_kernel.LAUNCHES = 0
     x0v = torch.randn(16, 5)
     w, b = torch.randn(25, 4), torch.randn(4)
-    out = cin_kernel.cin_layer(x0v, x0v, w, b)
+    with cuda_build.counting() as launches:
+        out = cin_kernel.cin_layer(x0v, x0v, w, b)
     torch.testing.assert_close(
         out, cin_kernel.cin_layer_reference(x0v, x0v, w, b), rtol=0, atol=0)
-    assert cin_kernel.LAUNCHES == 0
+    assert launches["cin_fwd"] == 0
 
 
 @pytest.mark.parametrize("n,fk,h", [(300, 20, 10), (37, 39, 5), (256, 10, 3)])
@@ -203,13 +203,14 @@ def test_cin_apply_gradients_match_jax(layer_sizes):
     jgp, jgx = jax.grad(jloss, argnums=(0, 1))(jp, jx)
     tp = [{k: v.requires_grad_() for k, v in layer.items()} for layer in tp]
     tx.requires_grad_()
-    (tinter.cin_apply(tp, tx) * torch.from_numpy(wts)).sum().backward()
+    with cuda_build.counting() as launches:
+        (tinter.cin_apply(tp, tx) * torch.from_numpy(wts)).sum().backward()
     np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jgx), **TOL)
     for tl, jl in zip(tp, jgp):
         for k in ("w", "b"):
             np.testing.assert_allclose(tl[k].grad.numpy(), np.asarray(jl[k]),
                                        rtol=1e-5, atol=5e-5, err_msg=k)
-    assert cin_kernel.BWD_LAUNCHES == 0   # CPU tensors: the plain backward
+    assert launches["cin_bwd"] == 0   # CPU tensors: the plain backward
 
 
 _SASS = """

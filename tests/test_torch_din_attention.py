@@ -20,6 +20,7 @@ import re
 import pytest
 import torch
 
+from recsys_tpu_torch.ops import cuda_build
 from recsys_tpu_torch.ops import din_attention as da
 from recsys_tpu_torch.ops import interactions
 
@@ -188,10 +189,10 @@ def test_the_cpu_path_keeps_the_plain_unit(monkeypatch):
 
     monkeypatch.setattr(da.DinAttentionUnit, "apply", refuse)
     params, hist, ids, query = _unit(4, 6, 16, (12, 8), "some")
-    before = da.LAUNCHES
-    interactions.din_attention(params, hist, ids, query, train=True,
-                               dropout_rate=0.1, gen=_gen(1))
-    assert da.LAUNCHES == before
+    with cuda_build.counting() as launches:
+        interactions.din_attention(params, hist, ids, query, train=True,
+                                   dropout_rate=0.1, gen=_gen(1))
+    assert launches["din_attention"] == 0
 
 
 def test_the_keep_constants_are_float32s():
@@ -208,7 +209,7 @@ def test_the_source_exports_each_entry_point_the_wrapper_binds():
     with open(da.SOURCE) as f:
         src = f.read()
     body = src[src.index('extern "C" {'):]
-    for name, args in da._SIGNATURES.items():
+    for name, args in cuda_build.signatures(da.SOURCE).items():
         m = re.search(rf"int {name}\(([^)]*)\)", body)
         assert m, name
         assert len(m.group(1).split(",")) == len(args), name
@@ -311,16 +312,15 @@ def test_launches_are_counted_per_unit(cuda_device):
         params, hist, ids, query = _unit(3, 16, 32, widths, "some",
                                          cuda_device, b=64)
         n = len(widths)
-        before = da.LAUNCHES
-        with torch.no_grad():
+        with cuda_build.counting() as launches, torch.no_grad():
             da.din_attention_unit(params, hist, ids, query)
-        assert da.LAUNCHES - before == n + 2
-        before = da.LAUNCHES
-        _grads(lambda w, h, q: da.din_attention_unit(
-            w, h, ids, q, train=True, dropout_rate=0.1,
-            gen=_gen(5, cuda_device)), params, hist, query)
-        torch.cuda.synchronize()
-        assert da.LAUNCHES - before == (n + 2) + (max(n, 1) + 2)
+        assert launches["din_attention"] == n + 2
+        with cuda_build.counting() as launches:
+            _grads(lambda w, h, q: da.din_attention_unit(
+                w, h, ids, q, train=True, dropout_rate=0.1,
+                gen=_gen(5, cuda_device)), params, hist, query)
+            torch.cuda.synchronize()
+        assert launches["din_attention"] == (n + 2) + (max(n, 1) + 2)
 
 
 @pytest.mark.gpu
@@ -350,12 +350,12 @@ def test_a_graphed_din_call_equals_the_eager_steps_and_counts_replays(
             model, tx, data["label"].shape[0], 256, graphed=graphed)
         ts, _ = steps(ts, data, 5, 0)           # the capture
         torch.cuda.synchronize()
-        before = da.LAUNCHES
-        ts, loss = steps(ts, data, 5, 5)
-        torch.cuda.synchronize()
+        with cuda_build.counting() as launches:
+            ts, loss = steps(ts, data, 5, 5)
+            torch.cuda.synchronize()
         out[graphed] = (loss, tree_util.leaves(
             (ts.params, ts.model_state, ts.opt_state)),
-            da.LAUNCHES - before)
+            launches["din_attention"])
     (l_e, t_e, n_e), (l_g, t_g, n_g) = out[False], out[True]
     assert torch.equal(l_e, l_g)
     for a, b in zip(t_e, t_g, strict=True):

@@ -22,7 +22,7 @@ from recsys_tpu_torch.core.config import CriteoConfig, ModelConfig
 from recsys_tpu_torch.data import amazon
 from recsys_tpu_torch.data.criteo import synthetic_criteo
 from recsys_tpu_torch.models.api import make_model
-from recsys_tpu_torch.ops import interactions
+from recsys_tpu_torch.ops import cuda_build, interactions
 from recsys_tpu_torch.train import fast
 from recsys_tpu_torch.train import train_state as TS
 from recsys_tpu_torch.utils import profiling
@@ -65,12 +65,11 @@ def _spy(monkeypatch):
         called.append(name)
         real(name, like)
 
-    def no_library():
-        raise AssertionError("an eager step on the CPU reached the marks' "
-                             "library")
+    def no_library(src):
+        raise AssertionError(f"an eager step on the CPU reached {src}")
 
     monkeypatch.setattr(profiling, "mark", mark)
-    monkeypatch.setattr(profiling, "_mark_lib", no_library)
+    monkeypatch.setattr(cuda_build, "load", no_library)
     return called
 
 

@@ -28,7 +28,7 @@ from recsys_tpu_torch.data.criteo import synthetic_criteo
 from recsys_tpu_torch.models.api import make_model
 from recsys_tpu_torch.data import amazon
 from recsys_tpu_torch.ops import adam_update as au
-from recsys_tpu_torch.ops import cin_kernel
+from recsys_tpu_torch.ops import cin_kernel, cuda_build
 from recsys_tpu_torch.ops import reshape_probe as rp
 from recsys_tpu_torch.ops import row_gather as rg
 from recsys_tpu_torch.ops import segment_sum as ss
@@ -55,10 +55,10 @@ def test_kernel_matches_plain_version(cuda_device, n, fk, h):
     xkv = torch.randn(n, fk, generator=gen).to(cuda_device)
     w = (0.05 * torch.randn(39 * fk, h, generator=gen)).to(cuda_device)
     b = torch.randn(h, generator=gen).to(cuda_device)
-    before = cin_kernel.LAUNCHES
+    before = _count("cin_fwd")
     got = cin_kernel.cin_layer(x0v, xkv, w, b)
     torch.cuda.synchronize()
-    assert cin_kernel.LAUNCHES == before + 1
+    assert _count("cin_fwd") == before + 1
     torch.testing.assert_close(
         got, cin_kernel.cin_layer_reference(x0v, xkv, w, b),
         rtol=1e-4, atol=1e-4)
@@ -110,9 +110,9 @@ def test_cin_forward_kernel_at_small_and_ragged_n(cuda_device, n, h):
     one more than a 128-row tile, a ragged N, and the training N, where each
     block walks several tiles."""
     args = _fwd_inputs(cuda_device, n, 39, 20, h, seed=n + h)
-    before = cin_kernel.LAUNCHES
+    before = _count("cin_fwd")
     _assert_fwd_matches_and_repeats(args)
-    assert cin_kernel.LAUNCHES == before + 2 * (n > 0)
+    assert _count("cin_fwd") == before + 2 * (n > 0)
 
 
 @pytest.mark.parametrize("f0,fk,h", [(5, 3, 4), (1, 1, 1), (64, 7, 6),
@@ -171,9 +171,9 @@ def test_servable_on_the_card_matches_the_cpu(cuda_device, tmp_path):
     export_servable(str(tmp_path), "xdeepfm", params, state, mcfg, ccfg)
     d = synthetic_criteo(300, ccfg)
     feats = {"ids": d["ids"], "dense": d["dense"]}
-    before = cin_kernel.LAUNCHES
+    before = _count("cin_fwd")
     got = Servable(str(tmp_path), device="cuda").predict(feats)
-    assert cin_kernel.LAUNCHES == before + 3
+    assert _count("cin_fwd") == before + 3
     ref = Servable(str(tmp_path), device="cpu").predict(feats)
     np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
 
@@ -188,10 +188,10 @@ def test_backward_kernel_matches_plain_version(cuda_device, n, fk, h):
     b = torch.randn(h, generator=gen).to(cuda_device)
     y = cin_kernel.cin_layer_reference(x0v, xkv, w, b)
     dy = torch.randn(n, h, generator=gen).to(cuda_device)
-    before = cin_kernel.BWD_LAUNCHES
+    before = _count("cin_bwd")
     got = cin_kernel.cin_layer_bwd(x0v, xkv, w, y, dy)
     torch.cuda.synchronize()
-    assert cin_kernel.BWD_LAUNCHES == before + 1
+    assert _count("cin_bwd") == before + 1
     ref = cin_kernel.cin_layer_backward_reference(x0v, xkv, w, y, dy)
     # dW and db are sums over all N rows: the tolerance grows with them
     tol = 1e-4 * max(1.0, n / 1024)
@@ -242,10 +242,10 @@ def test_cin_backward_kernel_at_small_and_ragged_n(cuda_device, n):
     """N = 0 (no launch), one row, fewer rows than one block's tile (256),
     one more than a tile, and a ragged N."""
     args = _bwd_inputs(cuda_device, n, 39, 20, seed=n + 7)
-    before = cin_kernel.BWD_LAUNCHES
+    before = _count("cin_bwd")
     got = cin_kernel.cin_layer_bwd(*args)
     torch.cuda.synchronize()
-    assert cin_kernel.BWD_LAUNCHES == before + (n > 0)
+    assert _count("cin_bwd") == before + (n > 0)
     _assert_bwd_matches(got, cin_kernel.cin_layer_backward_reference(*args),
                         n)
     for g, a in zip(got, cin_kernel.cin_layer_bwd(*args)):
@@ -305,10 +305,10 @@ def test_cin_apply_trains_through_the_kernels(cuda_device):
         (out * wts).sum().backward()
         return [x.grad] + [l[k].grad for l in p for k in ("w", "b")]
 
-    fwd, bwd = cin_kernel.LAUNCHES, cin_kernel.BWD_LAUNCHES
+    fwd, bwd = _count("cin_fwd"), _count("cin_bwd")
     got = grads(cin_kernel.cin_layer)
-    assert cin_kernel.LAUNCHES == fwd + 3
-    assert cin_kernel.BWD_LAUNCHES == bwd + 3
+    assert _count("cin_fwd") == fwd + 3
+    assert _count("cin_bwd") == bwd + 3
     ref = grads(cin_kernel.cin_layer_reference)
     for g, r in zip(got, ref):
         assert float(g.abs().max()) > 0
@@ -323,10 +323,10 @@ def test_segment_sum_kernel_matches_plain_version(cuda_device, n, v):
     u = torch.rand(n, generator=gen)
     ids = (v * u ** 2.2).long().clamp_(max=v - 1).to(cuda_device)
     g = torch.randn(n, 17, generator=gen).to(cuda_device)
-    before = ss.LAUNCHES
+    before = _count("segment_sum")
     got = ss.segment_sum(ids, g, v)
     torch.cuda.synchronize()
-    assert ss.LAUNCHES == before + 1
+    assert _count("segment_sum") == before + 1
     torch.testing.assert_close(got, ss.segment_sum_reference(ids, g, v),
                                rtol=1e-5, atol=1e-3)
     assert torch.equal(got, ss.segment_sum(ids, g, v))   # bitwise
@@ -339,10 +339,10 @@ def test_segment_sum_kernel_edge_cases(cuda_device):
     torch.testing.assert_close(got, ss.segment_sum_reference(one, g, 10),
                                rtol=1e-5, atol=1e-3)
     assert not got[torch.arange(10, device=cuda_device) != 7].any()
-    before = ss.LAUNCHES
+    before = _count("segment_sum")
     empty = ss.segment_sum(one[:0], g[:0], 10)
     assert empty.shape == (10, 17) and not empty.any()
-    assert ss.LAUNCHES == before          # N = 0 launches no kernel
+    assert _count("segment_sum") == before    # N = 0 launches no kernel
     wide = torch.randn(300, 70, device=cuda_device)     # W > 32
     ids = torch.randint(0, 40, (300,), device=cuda_device)
     torch.testing.assert_close(ss.segment_sum(ids, wide, 40),
@@ -441,14 +441,14 @@ def test_segment_sum_wrapper_makes_one_call(cuda_device, monkeypatch):
     ids = torch.randint(0, 500, (3000,), device=cuda_device)
     g = torch.randn(3000, 8, device=cuda_device)
     ss.segment_sum(ids, g, 500)                # caches the workspace size
-    lib, calls = ss._lib(), []
+    lib, calls = cuda_build.load(ss.SOURCE), []
 
     class Counted:
         def __getattr__(self, name):
             calls.append(name)
             return getattr(lib, name)
 
-    monkeypatch.setattr(ss, "_lib", lambda: Counted())
+    monkeypatch.setattr(cuda_build, "load", lambda src: Counted())
     with Ops() as ops:
         ss.segment_sum(ids, g, 500)
     assert calls == ["segment_sum"]
@@ -467,15 +467,14 @@ def test_three_train_steps_on_the_card_match_the_cpu(cuda_device, name):
     data = synthetic_criteo(4096, ccfg)
     idx = np.random.default_rng(0).integers(0, 4096, (3, 512))
     out = {}
-    for dev in ("cpu", cuda_device):
-        ts, tx = TS.create_train_state(model, 0, 1e-3, dev)
-        counts = (ss.LAUNCHES, cin_kernel.BWD_LAUNCHES)
-        ts, loss = fast.make_scanned_train_step(model, tx)(
-            ts, fast.stage_dataset(data, dev), idx)
-        out[str(dev)] = (float(loss), ts.params)
-    assert ss.LAUNCHES - counts[0] == 6
-    assert cin_kernel.BWD_LAUNCHES - counts[1] == (9 if name == "xdeepfm"
-                                                   else 0)
+    with cuda_build.counting() as n:
+        for dev in ("cpu", cuda_device):
+            ts, tx = TS.create_train_state(model, 0, 1e-3, dev)
+            ts, loss = fast.make_scanned_train_step(model, tx)(
+                ts, fast.stage_dataset(data, dev), idx)
+            out[str(dev)] = (float(loss), ts.params)
+    assert n["segment_sum"] == 6
+    assert n["cin_bwd"] == (9 if name == "xdeepfm" else 0)
     (l_cpu, p_cpu), (l_gpu, p_gpu) = out["cpu"], out["cuda"]
     assert abs(l_cpu - l_gpu) <= 1e-5 * abs(l_cpu)
     for a, b in zip(tree_util.leaves(p_cpu), tree_util.leaves(p_gpu)):
@@ -498,10 +497,10 @@ def test_row_gather_kernel_is_index_select(cuda_device, v, w, n):
     if n >= 2:
         ids[:2] = torch.tensor([0, v - 1])
     ids = ids.to(cuda_device)
-    before = rg.LAUNCHES
+    before = _count("row_gather")
     got = rg.row_gather(table, ids)
     torch.cuda.synchronize()
-    assert rg.LAUNCHES == before + (1 if n else 0)
+    assert _count("row_gather") == before + (1 if n else 0)
     assert got.shape == (n, w)
     assert torch.equal(got, torch.index_select(table, 0, ids))   # bitwise
 
@@ -531,9 +530,9 @@ def test_din_servable_on_the_card_matches_the_cpu(cuda_device, tmp_path):
                     factory_kwargs={"item_vocab": 5000, "cate_vocab": 100})
     sv = Servable(str(tmp_path), device="cuda")
     feats = sv._sample_features(300)
-    before = (rg.LAUNCHES, ss.LAUNCHES)
-    got = sv.predict(feats)
-    assert (rg.LAUNCHES - before[0], ss.LAUNCHES - before[1]) == (5, 0)
+    with cuda_build.counting() as n:
+        got = sv.predict(feats)
+    assert (n["row_gather"], n["segment_sum"]) == (5, 0)
     ref = Servable(str(tmp_path), device="cpu").predict(feats)
     np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
 
@@ -549,15 +548,15 @@ def test_three_din_steps_on_the_card_match_the_cpu(cuda_device):
         name="din", embedding_dim=32, use_bn=False, dropout=0.0))
     batches = list(amazon.batches(ds, 256, seed=1, num_epochs=1))[:3]
     out = {}
-    for dev in ("cpu", cuda_device):
-        ts, tx = TS.create_train_state(model, 0, 1e-3, dev)
-        step = TS.make_train_step(model, tx)
-        counts = (rg.LAUNCHES, ss.LAUNCHES)
-        for b in batches:
-            ts, loss = step(ts, fast.stage_dataset(b, dev))
-        out[str(dev)] = (float(loss), ts.params)
-    assert ss.LAUNCHES - counts[1] == 15          # 5 table reads per step
-    assert rg.LAUNCHES - counts[0] == 15
+    with cuda_build.counting() as n:
+        for dev in ("cpu", cuda_device):
+            ts, tx = TS.create_train_state(model, 0, 1e-3, dev)
+            step = TS.make_train_step(model, tx)
+            for b in batches:
+                ts, loss = step(ts, fast.stage_dataset(b, dev))
+            out[str(dev)] = (float(loss), ts.params)
+    assert n["segment_sum"] == 15          # 5 table reads per step
+    assert n["row_gather"] == 15
     (l_cpu, p_cpu), (l_gpu, p_gpu) = out["cpu"], out["cuda"]
     assert abs(l_cpu - l_gpu) <= 1e-5 * abs(l_cpu)
     for a, b in zip(tree_util.leaves(p_cpu), tree_util.leaves(p_gpu)):
@@ -582,14 +581,13 @@ def test_zoo_steps_on_the_card_match_the_cpu(cuda_device, name, engine,
     data = synthetic_criteo(4096, ccfg)
     idx = np.random.default_rng(0).integers(0, 4096, (3, 512))
     out = {}
-    for dev in ("cpu", cuda_device):
-        ts, tx = TS.create_train_state(model, 0, lr, dev)
-        counts = (rg.LAUNCHES, ss.LAUNCHES)
-        ts, loss = fast.make_scanned_train_step(model, tx)(
-            ts, fast.stage_dataset(data, dev), idx)
-        out[str(dev)] = (float(loss), ts.params)
-    assert (rg.LAUNCHES - counts[0], ss.LAUNCHES - counts[1]) == (3 * reads,
-                                                                  3 * reads)
+    with cuda_build.counting() as n:
+        for dev in ("cpu", cuda_device):
+            ts, tx = TS.create_train_state(model, 0, lr, dev)
+            ts, loss = fast.make_scanned_train_step(model, tx)(
+                ts, fast.stage_dataset(data, dev), idx)
+            out[str(dev)] = (float(loss), ts.params)
+    assert (n["row_gather"], n["segment_sum"]) == (3 * reads, 3 * reads)
     (l_cpu, p_cpu), (l_gpu, p_gpu) = out["cpu"], out["cuda"]
     assert abs(l_cpu - l_gpu) <= 1e-5 * abs(l_cpu)
     for a, b in zip(tree_util.leaves(p_cpu), tree_util.leaves(p_gpu)):
@@ -608,9 +606,9 @@ def test_servable_defaults_to_the_card(cuda_device, tmp_path):
     assert sv.device.type == "cuda"
     d = synthetic_criteo(300, ccfg)
     feats = {"ids": d["ids"], "dense": d["dense"]}
-    before = (rg.LAUNCHES, ss.LAUNCHES)
-    got = sv.predict(feats)
-    assert (rg.LAUNCHES - before[0], ss.LAUNCHES - before[1]) == (2, 0)
+    with cuda_build.counting() as n:
+        got = sv.predict(feats)
+    assert (n["row_gather"], n["segment_sum"]) == (2, 0)
     ref = Servable(str(tmp_path), device="cpu").predict(feats)
     np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
 
@@ -636,18 +634,42 @@ PROBE_CASES = [                                 # (VP, W, floats off)
 def test_reshape_probes_equal_their_plain_version(cuda_device, vp, w, shift):
     gen = torch.Generator().manual_seed(vp)
     flat = torch.randn(vp * w + shift, generator=gen).to(cuda_device)[shift:]
-    before = (rp.VIA_RESHAPE_LAUNCHES, rp.VIA_2D_LAUNCHES)
+    before = (_count("via_reshape"), _count("via_2d"))
     got_flat = rp.via_reshape(flat, w)
     got_2d = rp.via_2d(flat.view(vp, w))
     torch.cuda.synchronize()
-    assert (rp.VIA_RESHAPE_LAUNCHES - before[0],
-            rp.VIA_2D_LAUNCHES - before[1]) == (1, 1)
+    assert (_count("via_reshape") - before[0],
+            _count("via_2d") - before[1]) == (1, 1)
     want = rp.reshape_probe_reference(flat, w)
     assert torch.equal(got_flat, want) and torch.equal(got_2d, want)
     # 4 bytes off 16-byte alignment: the scalar path
     shifted = flat[1:1 + (vp - 1) * w]
     assert torch.equal(rp.via_reshape(shifted, w),
                        rp.reshape_probe_reference(shifted, w))
+
+
+def test_reshape_probe_launches_under_a_replayed_graph(cuda_device):
+    """S2 and S3 captured in a `step_graph.StepGraph`: the capture's
+    launches are taken back and every replay counts one of each, beside
+    the warm-up's; the replayed outputs are the plain version's."""
+    from recsys_tpu_torch.train import step_graph
+
+    flat = torch.randn(1001 * 17, device=cuda_device)
+    out = {}
+
+    def step():
+        out["flat"] = rp.via_reshape(flat, 17)
+        out["2d"] = rp.via_2d(flat.view(1001, 17))
+
+    graph = step_graph.StepGraph("reshape probes")
+    with cuda_build.counting() as n:
+        graph.capture((flat,), [flat], step)
+        for _ in range(5):
+            graph.replay()
+        torch.cuda.synchronize()
+    assert (n["via_reshape"], n["via_2d"]) == (1 + 5, 1 + 5)
+    want = rp.reshape_probe_reference(flat, 17)
+    assert torch.equal(out["flat"], want) and torch.equal(out["2d"], want)
 
 
 # ---------------------------------------------------------------------------
@@ -679,9 +701,15 @@ def _assert_bitwise(ts_a, ts_b):
         assert torch.equal(a, b), float((a - b).abs().max())
 
 
+def _count(name: str) -> int:
+    """Launches counted so far under ``name`` (`cuda_build.launches`)."""
+    return cuda_build.launches()[name]
+
+
 def _kernel_counts():
-    return np.array([ss.LAUNCHES, rg.LAUNCHES, cin_kernel.LAUNCHES,
-                     cin_kernel.BWD_LAUNCHES])
+    n = cuda_build.launches()
+    return np.array([n["segment_sum"], n["row_gather"], n["cin_fwd"],
+                     n["cin_bwd"]])
 
 
 @pytest.mark.parametrize("name,engine,reads,lr", GRAPH_CASES,
@@ -774,7 +802,7 @@ def test_the_step_marks_build_and_launch(cuda_device):
         torch.cuda.synchronize()
     assert _device_kernels(prof) == [f"recsys_mark_{m}"
                                      for m in profiling.MARKS] * 2
-    lib = profiling._mark_lib()
+    lib = cuda_build.load(profiling.MARK_SOURCE)
     stream = torch.cuda.current_stream(cuda_device).cuda_stream
     with pytest.raises(RuntimeError, match="invalid argument"):
         cuda_build.check(lib, lib.recsys_mark(len(profiling.MARKS), stream),
@@ -1244,11 +1272,11 @@ def test_graphed_servable_equals_eager_at_every_bucket(cuda_device,
     rows, cin = SERVING_LAUNCHES[key]
     for i, n in enumerate((1, 5, 8, 64, 200, 256, 1000, 4096)):
         feats = _serving_features(sv, n, i)
-        before = (rg.LAUNCHES, cin_kernel.LAUNCHES, ss.LAUNCHES)
-        got = sv.predict(feats)
-        torch.cuda.synchronize()
-        assert (rg.LAUNCHES - before[0], cin_kernel.LAUNCHES - before[1],
-                ss.LAUNCHES - before[2]) == (rows, cin, 0)
+        with cuda_build.counting() as launches:
+            got = sv.predict(feats)
+            torch.cuda.synchronize()
+        assert (launches["row_gather"], launches["cin_fwd"],
+                launches["segment_sum"]) == (rows, cin, 0)
         np.testing.assert_array_equal(got, eager.predict(feats))
         np.testing.assert_allclose(got, cpu.predict(feats), atol=1e-4,
                                    rtol=0)
@@ -1334,9 +1362,9 @@ def test_a_capture_beside_another_threads_launches_counts_its_own(
     assert sv.captures == 4
     for feats, got in answers:
         np.testing.assert_array_equal(got, eager.predict(feats))
-        before = rg.LAUNCHES
+        before = _count("row_gather")
         sv.predict(feats)                       # a replay
-        assert rg.LAUNCHES - before == 5
+        assert _count("row_gather") - before == 5
 
 
 # ---------------------------------------------------------------------------
@@ -1392,10 +1420,10 @@ def test_a2a_lookup_at_one_member_is_bitwise_the_table_gather(nccl_mesh):
 
     dev, env = nccl_mesh
     table, gids = _big_table_and_ids(dev)
-    before = rg.LAUNCHES
+    before = _count("row_gather")
     got = SE.a2a_embedding_lookup(table, gids, env.model, exact=True)
     torch.cuda.synchronize()
-    assert rg.LAUNCHES == before + 1           # the owner gather: S1
+    assert _count("row_gather") == before + 1     # the owner gather: S1
     assert torch.equal(got, emb_table.table_gather(table, gids))
     assert torch.equal(got, SE.psum_embedding_lookup(table, gids, env.model))
 
@@ -1416,10 +1444,10 @@ def test_a2a_lookup_gradient_at_one_member_matches_local(nccl_mesh):
                                                      exact=True),
                    lambda t: emb_table.table_gather(t, gids)):
         live = table.detach().clone().requires_grad_()
-        before = ss.LAUNCHES
+        before = _count("segment_sum")
         (g,) = torch.autograd.grad((lookup(live) * g_out).sum(), live)
         torch.cuda.synchronize()
-        assert ss.LAUNCHES == before + 1        # the kernel, not index_add_
+        assert _count("segment_sum") == before + 1  # the kernel, no index_add_
         grads.append(g)
     err = float((grads[0] - grads[1]).abs().max())
     assert err <= 1e-5 * float(grads[1].abs().max()), err
@@ -1675,10 +1703,10 @@ def test_adam_kernel_is_the_plain_loop_on_the_model_trees(
         model.init(torch.Generator(), "meta")[0])]
     tree = _adam_tree(shapes, cuda_device, seed=len(name))
     tx = _schedules()[schedule]()
-    launches, leaves = au.LAUNCHES, au.LEAVES
-    got = _adam_steps(tx, tree, 5, False, monkeypatch)
-    assert (au.LAUNCHES - launches, au.LEAVES - leaves) == (5,
-                                                            5 * len(shapes))
+    with cuda_build.counting() as n:
+        got = _adam_steps(tx, tree, 5, False, monkeypatch)
+    assert (n["adam_update"], n["adam_update.leaves"]) == (5,
+                                                           5 * len(shapes))
     want = _adam_steps(tx, tree, 5, True, monkeypatch)
     _assert_leaves_equal(got, want)
     assert not torch.equal(got[0][-2], tree[0][-2])   # the big table moved
@@ -1706,12 +1734,12 @@ def test_adam_kernel_edge_leaves(cuda_device, case, decay):
     lr_wd = torch.full((), 1e-5, device=cuda_device) if decay else None
     want = [[t.clone() for t in leaves] for leaves in tree]
     au.adam_update_reference(*want, lr_t, lr_wd, 0.9, 0.999, 1e-8)
-    launches, leaves = au.LAUNCHES, au.LEAVES
-    au.adam_update(*tree, lr_t, lr_wd, 0.9, 0.999, 1e-8)
-    torch.cuda.synchronize()
+    with cuda_build.counting() as n:
+        au.adam_update(*tree, lr_t, lr_wd, 0.9, 0.999, 1e-8)
+        torch.cuda.synchronize()
     live = sum(1 for s in shapes if int(np.prod(s)) > 0)
-    assert (au.LAUNCHES - launches, au.LEAVES - leaves) == (-(-live // 64),
-                                                            live)
+    assert (n["adam_update"], n["adam_update.leaves"]) == (-(-live // 64),
+                                                           live)
     _assert_leaves_equal(tree, want)
 
 
@@ -1786,8 +1814,8 @@ def test_graphed_adam_launch_counts_are_one_a_step(cuda_device, name,
     steps = fast.make_scanned_train_step_devgen(model, tx, 4096, 512)
     n_leaves = 0 if name == "wide" else len(tree_util.leaves(ts.params))
     for c, k in enumerate((1, 7, 4)):     # capture in a call of one step
-        before = (au.LAUNCHES, au.LEAVES)
-        ts, _ = steps(ts, data, k, c * 7)
-        torch.cuda.synchronize()
-        assert (au.LAUNCHES - before[0], au.LEAVES - before[1]) == (
+        with cuda_build.counting() as n:
+            ts, _ = steps(ts, data, k, c * 7)
+            torch.cuda.synchronize()
+        assert (n["adam_update"], n["adam_update.leaves"]) == (
             k * (n_leaves > 0), k * n_leaves)

@@ -25,6 +25,7 @@ config (vocabs ``(50,)*20 + (3000,)*6``, embedding dim 4, towers 8-8,
   ``--pairs=N``.
 """
 
+import contextlib
 import threading
 
 import jax
@@ -307,25 +308,62 @@ def test_graphed_train_call_at_a_new_width_captures_anew(stand_in_graphs):
     assert stand_in_graphs == ["make_scanned_train_step"] * 3
 
 
-def test_a_launch_tally_counts_its_own_stream_only():
+def test_a_launch_tally_counts_its_own_stream_only(monkeypatch):
     """`cuda_build.launch_tally` (what a graph capture takes back and adds
     at each replay) counts the launches made on its stream, from any
     thread (autograd's backward thread launches on the capturing stream),
-    and none made on another stream meanwhile."""
+    and none made on another stream meanwhile. `StepGraph` takes a
+    capture's tally back from the registry and adds it again at each
+    replay, whatever counter names it holds (CUDA's graph and streams
+    stood in for)."""
     from recsys_tpu_torch.ops import cuda_build
 
-    cuda_build.tally_launch("row_gather.LAUNCHES", 7)   # no tally open
+    cuda_build.count("row_gather", 7)   # no tally open
     with cuda_build.launch_tally(7) as tally:
-        cuda_build.tally_launch("row_gather.LAUNCHES", 7)
+        cuda_build.count("row_gather", 7)
         other = threading.Thread(target=lambda: [
-            cuda_build.tally_launch("segment_sum.LAUNCHES", 7),
-            cuda_build.tally_launch("segment_sum.LAUNCHES", 8)])
+            cuda_build.count("segment_sum", 7),
+            cuda_build.count("segment_sum", 8)])
         other.start()
         other.join(10)
-        cuda_build.tally_launch("row_gather.LAUNCHES", 9)
+        cuda_build.count("row_gather", 9)
     assert not other.is_alive()
-    assert tally == {"row_gather.LAUNCHES": 1, "segment_sum.LAUNCHES": 1}
-    assert step_graph._tallied({"recsys_tpu_torch.ops.row_gather.LAUNCHES":
-                                3}) == [0, 3, 0, 0, 0, 0, 0]
-    cuda_build.tally_launch("row_gather.LAUNCHES", 7)   # closed: no error
-    assert tally["row_gather.LAUNCHES"] == 1
+    assert tally == {"row_gather": 1, "segment_sum": 1}
+    cuda_build.count("row_gather", 7)   # closed: no error
+    assert tally["row_gather"] == 1
+
+    class Stream:
+        cuda_stream = 7
+
+        def __init__(self, device=None):
+            pass
+
+        def wait_stream(self, other):
+            pass
+
+    class Graph:
+        def capture_begin(self, **kwargs):
+            pass
+
+        def capture_end(self):
+            pass
+
+        def replay(self):
+            pass
+
+    for name, stand_in in [("Stream", Stream), ("CUDAGraph", Graph),
+                           ("current_stream", Stream),
+                           ("stream", lambda s: contextlib.nullcontext()),
+                           ("synchronize", lambda device=None: None),
+                           ("empty_cache", lambda: None)]:
+        monkeypatch.setattr(torch.cuda, name, stand_in)
+    name = "a.counter.that.no.list.declares"
+    graph = step_graph.StepGraph("f")
+    static = [torch.zeros(1)]
+    with cuda_build.counting() as launches:
+        graph.capture((), static, lambda: cuda_build.count(name, 7, 3))
+    assert launches == {name: 3}           # the warm-up step, not the capture
+    with cuda_build.counting() as launches:
+        for _ in range(4):
+            graph.replay()
+    assert launches == {name: 12}

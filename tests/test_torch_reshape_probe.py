@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from recsys_tpu_torch.ops import cuda_build
 from recsys_tpu_torch.ops import reshape_probe as rp
 
 W = 17
@@ -24,15 +25,15 @@ def test_plain_versions_are_numpy_bitwise(vp):
     flat = np.random.default_rng(vp).standard_normal(vp * W).astype(
         np.float32)
     want = 2 * flat.reshape(vp, W)
-    before = (rp.VIA_RESHAPE_LAUNCHES, rp.VIA_2D_LAUNCHES)
-    got_flat = rp.via_reshape(torch.from_numpy(flat), W)
-    got_2d = rp.via_2d(torch.from_numpy(flat.reshape(vp, W)))
+    with cuda_build.counting() as launches:
+        got_flat = rp.via_reshape(torch.from_numpy(flat), W)
+        got_2d = rp.via_2d(torch.from_numpy(flat.reshape(vp, W)))
     for got in (got_flat, got_2d,
                 rp.reshape_probe_reference(torch.from_numpy(flat), W)):
         assert got.shape == (vp, W) and got.dtype == torch.float32
         np.testing.assert_array_equal(got.numpy(), want)
     # CPU tensors take the plain version: no kernel launch is counted
-    assert (rp.VIA_RESHAPE_LAUNCHES, rp.VIA_2D_LAUNCHES) == before
+    assert (launches["via_reshape"], launches["via_2d"]) == (0, 0)
 
 
 @pytest.mark.parametrize("case", ["ragged", "float64", "2d_flat", "1d_2d",
