@@ -228,6 +228,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import math
 import os
 import queue
 import re
@@ -1080,15 +1081,22 @@ def adam_update_phase(au, ccfg, dev) -> dict:
 def din_attention_phase(da, dev) -> dict:
     """DIN's attention-unit kernels (``csrc/din_attention.cu``) against
     their plain versions on the card at the DIN cell's shapes (`DIN_UNIT`:
-    B = 1,024, P = 128, K = 32, hidden 80-40, dropout 0.1, about 31.5% of
-    the positions padding): the forward's kernels bitwise equal to theirs
+    B = 1,024, P = 128, K = 32, hidden 80-40, dropout 0.1, histories
+    left-aligned with the cell's law of lengths, about 31.5% of the
+    positions padding): the forward's kernels bitwise equal to theirs
     (the epilogue at both layers, the pooling with its ``torch.sum``), the
     backward's within 1e-6 of each output's norm; each timed as device time
     a call in a CUDA graph of `DIN_UNIT_TIMED` (plain, kernel, kernel,
     plain) and back to back, beside its bound (its bytes, each read and
     write once, over 3.35 TB/s); then one unit's forward and backward
-    through the Function against autograd over the plain unit. No single
-    PyTorch call computes any of them, so there is no library time."""
+    through the Function against autograd over the plain unit. The fused
+    backward (``din_fused_backward`` and its column sums, the unit's
+    backward at these widths) is held to `_backward_plain` within 1e-6 and
+    timed the same way beside its bound (its multiply-adds over the FFMA
+    peak, or its bytes), the plain backward and the chain it replaced
+    (`_backward_chain`: four kernels round cuBLAS's products); it prints
+    the share of the history tiles it computed. No single PyTorch call
+    computes any of them, so there is no library time."""
     from recsys_tpu_torch.ops import interactions
 
     b, p, k, widths = DIN_UNIT
@@ -1102,8 +1110,17 @@ def din_attention_phase(da, dev) -> dict:
               "out": {n: t.to(dev) for n, t in params["out"].items()}}
     hist = torch.randn(b, p, k, generator=gen).to(dev)
     query = torch.randn(b, k, generator=gen).to(dev)
+    # left-aligned histories of the DIN cell's law: users rate
+    # clamp(round(exp(ln 68 + 1.2222 z)), 20, 9254) movies, each rating's
+    # history is the user's earlier ones, the most recent P
+    counts = torch.exp(math.log(68) + 1.2222 * torch.randn(
+        20_000, generator=gen)).round().clamp(20, 9254).long()
+    places = torch.arange(int(counts.sum())) - torch.repeat_interleave(
+        torch.cumsum(counts, 0) - counts, counts)
+    lens = places[torch.randint(len(places), (b,), generator=gen)].clamp(
+        max=p)
     ids = (torch.randint(1, 27_279, (b, p), generator=gen)
-           * (torch.rand(b, p, generator=gen) >= 0.315)).to(dev)
+           * (torch.arange(p)[None, :] < lens[:, None])).to(dev)
     dout = torch.randn(b, k, generator=gen).to(dev)
     keep = 0.9
     draw = torch.Generator(device=dev).manual_seed(5)
@@ -1123,7 +1140,8 @@ def din_attention_phase(da, dev) -> dict:
     da1 = dz2 @ w2.t()
     dz1, _ = da.epilogue_backward_reference(da1, a1, keep)
     dx = dz1 @ w1.t()
-    parts = da.partials(rows, [widths[0], widths[1], widths[1], 1], dev)
+    parts = da.partials(-(-rows // da.ROWS_PER_BLOCK),
+                        [widths[0], widths[1], widths[1], 1], dev)
     # the in-place kernels' buffers: their first call is checked, later
     # calls only timed
     z1b, z2b, da1b = z1.clone(), z2.clone(), da1.clone()
@@ -1189,6 +1207,64 @@ def din_attention_phase(da, dev) -> dict:
               f"back to back {host_ms:.4f}, bound {b_ms:.4f} ({by}: "
               f"{b_ms / k_ms:.1%} of it); {want} against the plain version "
               f"(max error {err:.3e})", flush=True)
+
+    # the whole backward: fused (two launches) against the plain versions
+    ins = [x, a1, a2]
+    weights = [w1, b1, w2, b2, w_out, b_out]
+    args = (dout, hist, query, ids, wgt, ins, weights, keep)
+    tiles = torch.zeros(2, dtype=torch.int64, device=dev)
+    before = _launches()
+    got = da.fused_backward_kernel(*args, tiles)
+    (launches,) = _since(before, ("din_attention",)).values()
+    n_tiles, n_done = tiles.tolist()
+    ref = da._backward_plain(*args)
+    got, ref = [got[0], got[1], *got[2]], [ref[0], ref[1], *ref[2]]
+    err = max(float((g.double() - r.double()).norm())
+              / max(float(r.double().norm()), 1e-30) for g, r in zip(got, ref))
+    _check(da.fused(hist, ins, weights) and launches == 2 and err <= 1e-6,
+           f"din fused backward: {launches} launches, differs from the plain "
+           f"backward by {err} (want 1e-6)")
+    h1, h2 = widths
+    done_rows = n_done * da.TILE_ROWS
+    grid = min(b, da.FUSED_BLOCKS_PER_SM
+               * torch.cuda.get_device_properties(dev).multi_processor_count)
+    # multiply-adds a computed row: dA1 and dW2 (h1·h2 each), G and d_hist
+    # (K·h1 each); bytes: the computed rows' hist, A1, A2, wgt and d_hist,
+    # every id, the skipped rows' zeros and the partial rows
+    flops = 2 * done_rows * 2 * (h1 * h2 + k * h1)
+    nbytes = (f4 * done_rows * (2 * k + h1 + h2 + 1) + i8 * rows
+              + f4 * (rows - done_rows) * k
+              + 8 * grid * (4 * k * h1 + h1 * h2 + 2 * h1 + 2 * h2 + 1))
+
+    def fused_run():
+        return da.fused_backward_kernel(*args)
+
+    def chain_run():
+        return da._backward_chain(*args)
+
+    def plain_backward():
+        return da._backward_plain(*args)
+
+    t = [_graph_ms(f, DIN_UNIT_TIMED)
+         for f in (chain_run, fused_run, fused_run, chain_run)]
+    f_ms, c_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+    p_ms = _graph_ms(plain_backward, DIN_UNIT_TIMED)
+    host_ms, _ = _timed_pair(fused_run, chain_run, DIN_UNIT_TIMED)
+    b_ms, by = _bound(nbytes, flops)
+    out["din_fused_backward"] = {
+        "ms": f_ms, "chain_ms": c_ms, "plain_ms": p_ms, "host_ms": host_ms,
+        "bound_ms": b_ms, "bound_by": by, "max_err": err,
+        "launches_a_call": launches, "library_ms": None,
+        "tiles": n_tiles, "tiles_computed": n_done}
+    print(f"din attention fused backward (B={b}, P={p}, K={k}, 80-40): "
+          f"{n_done} of {n_tiles} history tiles computed "
+          f"({n_done / n_tiles:.1%}); device ms a call in a CUDA graph: "
+          f"fused {f_ms:.4f} (chain, fused, fused, chain: "
+          f"{', '.join('%.4f' % v for v in t)}), the chain it replaced "
+          f"{c_ms:.4f}, plain {p_ms:.4f}, back to back {host_ms:.4f}, bound "
+          f"{b_ms:.4f} ({by}: {b_ms / f_ms:.1%} of it; {flops / 1e9:.3f} "
+          f"GFLOP, {nbytes / 1e6:.1f} MB); within {err:.2e} of the plain "
+          "backward", flush=True)
 
     def unit(run, g):
         leaves = [t.detach().requires_grad_() for t in
@@ -2088,8 +2164,9 @@ def din_train_phase(train, evald, dev) -> dict:
            f"DIN: {counts['row_gather']} row-gather launches for "
            f"{DIN_STEPS} steps and {n_eval} eval batches, want "
            f"{5 * (DIN_STEPS + n_eval)}")
-    # 8 kernels a unit a training step, 4 an eval batch (two units each)
-    want = 16 * DIN_STEPS + 8 * n_eval
+    # 6 kernels a unit a training step (4 forward, the fused backward and
+    # its column sums), 4 an eval batch (two units each)
+    want = 12 * DIN_STEPS + 8 * n_eval
     _check(counts["din_attention"] == want,
            f"DIN: {counts['din_attention']} attention-unit launches for "
            f"{DIN_STEPS} steps and {n_eval} eval batches, want {want}")
@@ -3705,13 +3782,16 @@ def main() -> None:
          "source": "recsys_tpu_torch/csrc/din_attention.cu",
          "replaces": None,
          "note": "replaces no TPU kernel (XLA fuses the JAX package's DIN "
-                 "unit); seven kernels round the unit's cuBLAS products; "
-                 "kernels: each one's device ms a call in a CUDA graph of "
+                 "unit); the forward's kernels round the unit's cuBLAS "
+                 "products, the backward one fused kernel and its column "
+                 "sums at DIN's widths (the chain of four kernels round "
+                 "cuBLAS's products elsewhere); kernels: each one's device "
+                 "ms a call in a CUDA graph of "
                  f"{DIN_UNIT_TIMED} at the DIN cell's shapes {DIN_UNIT}, "
                  "plain_ms its plain version's, host_ms back to back; "
                  "unit: one unit's forward and backward, the Function "
                  "against autograd over the plain unit; launches: DIN "
-                 "training (8 a unit a step, 4 an eval batch)",
+                 "training (6 a unit a step, 4 an eval batch)",
          "launches": din["counts"]["din_attention"],
          "kernels": din_attn}]}))
     print(json.dumps({"ok": True, "device": {

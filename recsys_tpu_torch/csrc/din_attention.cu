@@ -122,6 +122,8 @@ bool aligned16(const void* ptr) {
   return (reinterpret_cast<std::uintptr_t>(ptr) & 15u) == 0;
 }
 
+int launched() { return static_cast<int>(cudaGetLastError()); }
+
 // ---------------------------------------------------------------- forward
 
 // X[r] = [h_r, q_b, h_r·q_b, h_r − q_b]; n = R·K/V vectors of hist.
@@ -450,7 +452,524 @@ din_column_sums_kernel(const __grid_constant__ Segments S) {
   }
 }
 
-int launched() { return static_cast<int>(cudaGetLastError()); }
+// ------------------------------------------- fused backward, two layers
+//
+// One kernel for the whole backward of a unit with two hidden layers of
+// widths H1, H2 and embeddings of width K, the shapes DIN trains (K = 32,
+// 80-40). A block owns a contiguous range of examples b (static: block g
+// takes [g·B/G, (g+1)·B/G)) and their histories in tiles of TILE
+// consecutive positions. It first reads every id of its examples: a tile
+// whose ids are all 0 (padding) is skipped and its rows of d_hist written
+// as zeros, since on such rows d_wgt = 0, so dZ2, dA1, dZ1 and dX are
+// exactly 0 and so is each of their shares of the weights' gradients. The
+// other tiles go in a list, in order, and each is computed whole, its
+// padded rows adding exact zeros, so nothing rests on the padding being at
+// the end. On a computed tile, in shared memory only:
+//
+//     d_wgt_r = [id_r > 0]·Σ_k dout_k·h_rk               TILE rows
+//     dZ2 = [A2 > 0]·(d_wgt ⊗ w_out)/keep                 [TILE, H2]
+//     dA1 = dZ2·W2ᵀ,  dZ1 = [A1 > 0]·dA1/keep             [TILE, H1]
+//     dW2 += A1ᵀ·dZ2                                      [H1, H2]
+//     G   += hᵀ·dZ1,  s += Σ_r dZ1                        [K, H1], [H1]
+//     d_hist = dZ1·W_effᵀ + [id > 0]·dout·wgt             [TILE, K]
+//
+// X = [h, q, h⊙q, h−q] is never read: its four column groups are h and q
+// of the example, so X's gradient folds into d_hist through the example's
+// W_eff[k, i] = W1[k, i] + q_k·W1[2K+k, i] + W1[3K+k, i], and the example's
+// sums give the rest: d_query_k = Σ_i s_i·(W1[K+k, i] − W1[3K+k, i])
+// + W1[2K+k, i]·G_ki, and dW1's four row groups are Σ_b G, Σ_b q⊗s,
+// Σ_b q·G and Σ_b G − q⊗s. That is 2·(K + H2)·H1 multiply-adds a row for
+// the products (dA1, dW2, G, d_hist) where dX and dW1 as products of X take
+// 2·(4K + H2)·H1; d_query's sum over the example stays in one block, in a
+// fixed order.
+//
+// What bounds it: float32 FFMA (no TF32: the configuration's float32). A
+// computed tile does about 370k multiply-adds on 19 KB of inputs, so the
+// products are register-blocked from shared memory: W2ᵀ and the example's
+// W_eff stay resident, warps 0-3 run dA1 (4 rows × H1/16 columns a thread,
+// a float4 of dZ2ᵀ against H1/16 conflict-free loads of W2ᵀ a step) then
+// d_hist, while warps 4-7 run dW2 (H1/16 × H2/8 a thread) then G, whose
+// sums stay in their registers across the block's tiles. The next listed
+// tile's A1, A2, hist, ids and wgt are copied in (cp.async) while the
+// current one's d_hist and G run, and two blocks share an SM
+// (__launch_bounds__(256, 2), about 110 KB of shared memory each), so the
+// loads' latency hides behind products.
+//
+// Sums: each block adds its rows in a fixed order (float32 in the
+// products; double for d_wgt's dot product, whose float32 rounding b_out's
+// sum over 10^5 rows would show, and for the biases' and w_out's columns)
+// and writes one double partial row of every weight and bias gradient;
+// din_column_sums adds the partial rows in order. No atomics on any
+// result: the one atomicAdd a block makes is to the integer tile counter
+// (tiles, computed) when one is given. Two runs give the same bits, and so
+// does a graph.
+//
+// What is left above the bound: a computed tile costs an SM
+// about 4.5 µs, some 30% of the FFMA rate, and blocks own 3 or 4 examples
+// of up to 4 computed tiles each, so the SM with the most tiles sets the
+// time.
+
+constexpr int TILE = 32;         // history positions a tile
+constexpr int LIST = 256;        // tiles a block lists at a time
+static_assert(THREADS == 8 * TILE, "eight warps of a lane a row");
+
+constexpr int up4(int n) { return (n + 3) / 4 * 4; }
+
+// Offsets, in floats, of the fused kernel's shared arrays.
+template <int K, int H1, int H2>
+struct FusedLayout {
+  static constexpr int WE_LD = K + 1;        // W_effᵀ [H1][K+1]
+  static constexpr int Z2_LD = H2 + 1;       // A2, then dZ2 [TILE][H2+1]
+  static constexpr int Z1T_LD = TILE + 4;    // dZ1ᵀ [H1][TILE+4]
+  static constexpr int W2T = 0;                           // [H2][H1]
+  static constexpr int WE = up4(W2T + H2 * H1);
+  static constexpr int ACC = up4(WE + H1 * WE_LD);        // [3][K][H1]
+  static constexpr int H = up4(ACC + 3 * K * H1);         // [2][TILE][K]
+  static constexpr int A1 = up4(H + 2 * TILE * K);        // [TILE][H1]
+  static constexpr int Z2 = up4(A1 + TILE * H1);
+  static constexpr int Z2T = up4(Z2 + TILE * Z2_LD);      // [H2][TILE]
+  static constexpr int Z1 = up4(Z2T + H2 * TILE);         // [TILE][H1]
+  static constexpr int Z1T = up4(Z1 + TILE * H1);
+  static constexpr int WR = up4(Z1T + H1 * Z1T_LD);       // wgt [2][TILE]
+  static constexpr int Q = WR + 2 * TILE;                 // query [K]
+  static constexpr int GO = Q + K;                        // dout [K]
+  static constexpr int S = GO + K;                        // s [H1]
+  static constexpr int PS = S + H1;                       // [8][H1]
+  static constexpr int DQ = PS + 8 * H1;                  // [16][K]
+  static constexpr int LST = DQ + 16 * K;                 // int [LIST]
+  static constexpr int CNT = LST + LIST;                  // int: listed
+  static constexpr int WIDE = up4(CNT + 1);               // then 8-byte:
+  static constexpr int DB1 = 0;                           //   d_b1 [H1]
+  static constexpr int DB2 = H1;                          //   d_b2 [H2]
+  static constexpr int DWO = DB2 + H2;                    //   d_w_out [H2]
+  static constexpr int DBO = DWO + H2;                    //   d_b_out [1]
+  static constexpr int ID = DBO + 1;                      //   ids [2][TILE]
+  static constexpr size_t BYTES = 4 * WIDE + 8 * (ID + 2 * TILE);
+};
+
+// cp.async of N bytes into shared memory, or N zeros where !full.
+template <int N>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem,
+                                         bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s),
+               "l"(gmem), "n"(N), "r"(full ? N : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+template <int K, int H1, int H2>
+__global__ void __launch_bounds__(THREADS, 2)
+din_fused_backward_kernel(
+    const float* __restrict__ dout, const float* __restrict__ hist,
+    const float* __restrict__ query, const long long* __restrict__ ids,
+    const float* __restrict__ wgt, const float* __restrict__ a1,
+    const float* __restrict__ a2, const float* __restrict__ w1,
+    const float* __restrict__ w2, const float* __restrict__ w_out,
+    float* __restrict__ dhist, float* __restrict__ dquery,
+    double* __restrict__ part_w1, double* __restrict__ part_b1,
+    double* __restrict__ part_w2, double* __restrict__ part_b2,
+    double* __restrict__ part_wo, double* __restrict__ part_bo,
+    unsigned long long* __restrict__ tiles, int B, int P, float inv_keep) {
+  using L = FusedLayout<K, H1, H2>;
+  static_assert(K == 16 || K == 32, "the rotated d_wgt sum and G's float4");
+  static_assert(H1 % 16 == 0 && H2 % 8 == 0, "the thread maps below");
+  constexpr int HALF = THREADS / 2;   // warps 0-3 | warps 4-7
+  constexpr int IE = H1 / 16;         // columns i = x + 16e of a thread
+  constexpr int JF = H2 / 8;          // dW2's columns j = g + 8f
+  constexpr int KE = K / 16;          // d_hist's k = x + 16c
+  constexpr int KPT = K / 8;          // G's k = g·KPT + c
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  float* sW2T = sm + L::W2T;
+  float* sWe = sm + L::WE;
+  float* sAcc = sm + L::ACC;
+  float* sA1 = sm + L::A1;
+  float* sZ2 = sm + L::Z2;
+  float* sZ2T = sm + L::Z2T;
+  float* sZ1 = sm + L::Z1;
+  float* sZ1T = sm + L::Z1T;
+  float* sQ = sm + L::Q;
+  float* sGo = sm + L::GO;
+  float* sS = sm + L::S;
+  float* sPS = sm + L::PS;
+  float* sDQ = sm + L::DQ;
+  int* sList = reinterpret_cast<int*>(sm + L::LST);
+  double* sD = reinterpret_cast<double*>(sm + L::WIDE);
+  long long* sId0 = reinterpret_cast<long long*>(sm + L::WIDE) + L::ID;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const bool first_half = tid < HALF;
+  const int u = tid & (HALF - 1);
+  const int g = u >> 4, x = u & 15;   // g in 0..7, x in 0..15
+  const int b_lo = static_cast<int>(1LL * blockIdx.x * B / gridDim.x);
+  const int b_hi = static_cast<int>(1LL * (blockIdx.x + 1) * B / gridDim.x);
+  const int ntiles = (P + TILE - 1) / TILE;
+  const int chunk = LIST / ntiles;    // examples listed at a time (≥ 1)
+
+  for (int e = tid; e < H1 * H2; e += THREADS) {
+    const int i = e / H2, j = e - i * H2;
+    sW2T[j * H1 + i] = w2[e];
+  }
+  for (int e = tid; e < 3 * K * H1; e += THREADS) sAcc[e] = 0.0f;
+  for (int e = tid; e < L::ID; e += THREADS) sD[e] = 0.0;
+
+  float dw2[IE][JF] = {};             // warps 4-7: dW2[x + 16e][g + 8f]
+  float gk[KPT][IE];                  // warps 4-7: G[g·KPT + c][x + 16e]
+  unsigned long long n_tiles = 0, n_done = 0;
+
+  // the listed tile j of the examples from c0 into buffer nb
+  auto fetch = [&](int c0, int j, int nb) {
+    const int b = c0 + j / ntiles;
+    const int p0 = (j - (j / ntiles) * ntiles) * TILE;
+    const int nr = P - p0 < TILE ? P - p0 : TILE;
+    const size_t row0 = static_cast<size_t>(b) * P + p0;
+    float* sH = sm + L::H + nb * TILE * K;
+    for (int e = tid; e < TILE * K / 4; e += THREADS) {
+      const bool in = e / (K / 4) < nr;
+      cp_async<16>(sH + 4 * e, in ? hist + row0 * K + 4 * e : hist, in);
+    }
+    for (int e = tid; e < TILE * H1 / 4; e += THREADS) {
+      const bool in = e / (H1 / 4) < nr;
+      cp_async<16>(sA1 + 4 * e, in ? a1 + row0 * H1 + 4 * e : a1, in);
+    }
+    for (int e = tid; e < TILE * H2; e += THREADS) {
+      const int r = e / H2;
+      const bool in = r < nr;
+      cp_async<4>(sZ2 + r * L::Z2_LD + e - r * H2, in ? a2 + row0 * H2 + e : a2,
+                  in);
+    }
+    if (tid < TILE) {
+      const bool in = tid < nr;
+      cp_async<8>(sId0 + nb * TILE + tid, in ? ids + row0 + tid : ids, in);
+      cp_async<4>(sm + L::WR + nb * TILE + tid, in ? wgt + row0 + tid : wgt, in);
+    }
+    cp_async_commit();
+  };
+
+
+  // an example's query, output gradient and W_eff, its G and s zeroed
+  auto example_begin = [&](int b) {
+    if (tid < K) {
+      sQ[tid] = query[static_cast<size_t>(b) * K + tid];
+      sGo[tid] = dout[static_cast<size_t>(b) * K + tid];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int n = 0; n < (K * H1 + THREADS - 1) / THREADS; ++n) {
+      const int e = tid + n * THREADS;
+      if (e < K * H1) {
+        const int k = e / H1, i = e - k * H1;
+        sWe[i * L::WE_LD + k] =
+            fmaf(sQ[k], w1[(2 * K + k) * H1 + i], w1[e]) + w1[(3 * K + k) * H1 + i];
+      }
+    }
+    for (int i = tid; i < H1; i += THREADS) sS[i] = 0.0f;
+#pragma unroll
+    for (int e = 0; e < IE; ++e) {
+#pragma unroll
+      for (int c = 0; c < KPT; ++c) gk[c][e] = 0.0f;
+    }
+  };
+
+  // an example's end: dW1's sums, d_b1 and d_query from its G and s
+  auto example_end = [&](int b) {
+    __syncthreads();
+    for (int i = tid; i < H1; i += THREADS) sD[L::DB1 + i] += sS[i];
+    if (!first_half) {
+#pragma unroll
+      for (int c = 0; c < KPT; ++c) {
+        const int k = KPT * g + c;
+        const float q = sQ[k];
+        float dq = 0.0f;
+#pragma unroll
+        for (int e = 0; e < IE; ++e) {
+          const int i = x + 16 * e;
+          const float gv = gk[c][e], si = sS[i];
+          sAcc[k * H1 + i] += gv;
+          sAcc[(K + k) * H1 + i] += q * gv;
+          sAcc[(2 * K + k) * H1 + i] += q * si;
+          dq = fmaf(si, w1[(K + k) * H1 + i] - w1[(3 * K + k) * H1 + i], dq);
+          dq = fmaf(w1[(2 * K + k) * H1 + i], gv, dq);
+        }
+        sDQ[x * K + k] = dq;
+      }
+    }
+    __syncthreads();
+    if (tid < K) {
+      float s = 0.0f;
+#pragma unroll
+      for (int jj = 0; jj < 16; ++jj) s += sDQ[jj * K + tid];
+      dquery[static_cast<size_t>(b) * K + tid] = s;
+    }
+  };
+
+  for (int c0 = b_lo; c0 < b_hi; c0 += chunk) {
+    const int c1 = b_hi - c0 < chunk ? b_hi : c0 + chunk;
+    const int n = (c1 - c0) * ntiles;
+    // list the tiles that hold an id; zeros for the others' rows of d_hist
+    // and for d_query, which each example's end writes over
+    for (int e = tid; e < (c1 - c0) * K; e += THREADS) {
+      dquery[static_cast<size_t>(c0) * K + e] = 0.0f;
+    }
+    for (int j = warp; j < n; j += THREADS / 32) {
+      const int b = c0 + j / ntiles;
+      const int p0 = (j - (j / ntiles) * ntiles) * TILE;
+      const int nr = P - p0 < TILE ? P - p0 : TILE;
+      const size_t row0 = static_cast<size_t>(b) * P + p0;
+      const unsigned any =
+          __ballot_sync(0xffffffffu, lane < nr && ids[row0 + lane] > 0);
+      if (!any) {
+        for (int e = lane; e < nr * K; e += 32) dhist[row0 * K + e] = 0.0f;
+      }
+      if (lane == 0) sList[j] = any != 0;
+    }
+    __syncthreads();
+    if (warp == 0) {  // compacted in place, in order
+      int listed = 0;
+      for (int base = 0; base < n; base += 32) {
+        const bool f = base + lane < n && sList[base + lane] != 0;
+        const unsigned bal = __ballot_sync(0xffffffffu, f);
+        if (f) sList[listed + __popc(bal & ((1u << lane) - 1u))] = base + lane;
+        listed += __popc(bal);
+      }
+      if (lane == 0) reinterpret_cast<int*>(sm + L::CNT)[0] = listed;
+    }
+    __syncthreads();
+    const int listed = reinterpret_cast<int*>(sm + L::CNT)[0];
+    n_tiles += n;
+    n_done += listed;
+
+    int cur = -1;                       // the example being summed
+    if (listed > 0) fetch(c0, sList[0], 0);
+    for (int m = 0; m < listed; ++m) {
+      const int nb = m & 1;
+      const int j = sList[m];
+      const int b = c0 + j / ntiles;
+      const int p0 = (j - (j / ntiles) * ntiles) * TILE;
+      const int nr = P - p0 < TILE ? P - p0 : TILE;
+      const size_t row0 = static_cast<size_t>(b) * P + p0;
+      const float* sH = sm + L::H + nb * TILE * K;
+      const long long* sId = sId0 + nb * TILE;
+      const float* sWr = sm + L::WR + nb * TILE;
+      if (b != cur) {
+        if (cur >= 0) example_end(cur);
+        example_begin(b);
+        cur = b;
+      }
+      cp_async_wait();
+      __syncthreads();
+
+      {  // d_wgt of row `lane` (each warp), then dZ2 over A2 (j = warp + 8m)
+        double dd = 0.0;   // in double, so that b_out's sum keeps its digits
+#pragma unroll
+        for (int kk = 0; kk < K; ++kk) {
+          const int k = (lane + kk) & (K - 1);   // conflict-free rotation
+          dd = fma(static_cast<double>(sGo[k]),
+                   static_cast<double>(sH[lane * K + k]), dd);
+        }
+        dd = sId[lane] > 0 ? dd : 0.0;
+        const float d = static_cast<float>(dd);
+        if (warp == 0) {       // b_out: the tile's sum, over lanes in a tree
+          double t = dd;
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
+          if (lane == 0) sD[L::DBO] += t;
+        }
+#pragma unroll
+        for (int mm = 0; mm < JF; ++mm) {
+          const int jj = warp + 8 * mm;
+          float* p = sZ2 + lane * L::Z2_LD + jj;
+          const float a = *p;
+          const float z =
+              a > 0.0f ? __fmul_rn(__fmul_rn(d, w_out[jj]), inv_keep) : 0.0f;
+          *p = z;
+          sZ2T[jj * TILE + lane] = z;
+          double tb = z, tw = static_cast<double>(a) * dd;  // the columns' sums
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1) {
+            tb += __shfl_xor_sync(0xffffffffu, tb, o);
+            tw += __shfl_xor_sync(0xffffffffu, tw, o);
+          }
+          if (lane == 0) {
+            sD[L::DB2 + jj] += tb;
+            sD[L::DWO + jj] += tw;
+          }
+        }
+      }
+      __syncthreads();
+
+      if (first_half) {  // dA1 = dZ2·W2ᵀ → dZ1, rows 4g..4g+3
+        float acc[4][IE] = {};
+#pragma unroll 4
+        for (int jj = 0; jj < H2; ++jj) {
+          const float4 a = *reinterpret_cast<const float4*>(sZ2T + jj * TILE + 4 * g);
+#pragma unroll
+          for (int e = 0; e < IE; ++e) {
+            const float w = sW2T[jj * H1 + x + 16 * e];
+            acc[0][e] = fmaf(a.x, w, acc[0][e]);
+            acc[1][e] = fmaf(a.y, w, acc[1][e]);
+            acc[2][e] = fmaf(a.z, w, acc[2][e]);
+            acc[3][e] = fmaf(a.w, w, acc[3][e]);
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < IE; ++e) {
+          const int i = x + 16 * e;
+          float z[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int row = 4 * g + r;
+            z[r] = sA1[row * H1 + i] > 0.0f ? __fmul_rn(acc[r][e], inv_keep) : 0.0f;
+            sZ1[row * H1 + i] = z[r];
+          }
+          *reinterpret_cast<float4*>(sZ1T + i * L::Z1T_LD + 4 * g) =
+              make_float4(z[0], z[1], z[2], z[3]);
+          sPS[g * H1 + i] = (z[0] + z[1]) + (z[2] + z[3]);   // s's share
+        }
+      } else {  // dW2 += A1ᵀ·dZ2
+#pragma unroll 2
+        for (int r = 0; r < TILE; ++r) {
+          float av[IE], bv[JF];
+#pragma unroll
+          for (int e = 0; e < IE; ++e) av[e] = sA1[r * H1 + x + 16 * e];
+#pragma unroll
+          for (int f = 0; f < JF; ++f) bv[f] = sZ2[r * L::Z2_LD + g + 8 * f];
+#pragma unroll
+          for (int e = 0; e < IE; ++e) {
+#pragma unroll
+            for (int f = 0; f < JF; ++f) dw2[e][f] = fmaf(av[e], bv[f], dw2[e][f]);
+          }
+        }
+      }
+      __syncthreads();
+      // A1 and A2 are spent: the next listed tile comes in behind d_hist, G
+      if (m + 1 < listed) fetch(c0, sList[m + 1], nb ^ 1);
+
+      if (first_half) {  // d_hist = dZ1·W_effᵀ + the pooling's share
+        for (int i = tid; i < H1; i += HALF) {   // s += the tile's Σ_r dZ1
+          float t = 0.0f;
+#pragma unroll
+          for (int gg = 0; gg < 8; ++gg) t += sPS[gg * H1 + i];
+          sS[i] += t;
+        }
+        float acc[4][KE] = {};
+#pragma unroll 4
+        for (int i = 0; i < H1; ++i) {
+          const float4 a = *reinterpret_cast<const float4*>(sZ1T + i * L::Z1T_LD + 4 * g);
+#pragma unroll
+          for (int c = 0; c < KE; ++c) {
+            const float w = sWe[i * L::WE_LD + x + 16 * c];
+            acc[0][c] = fmaf(a.x, w, acc[0][c]);
+            acc[1][c] = fmaf(a.y, w, acc[1][c]);
+            acc[2][c] = fmaf(a.z, w, acc[2][c]);
+            acc[3][c] = fmaf(a.w, w, acc[3][c]);
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int row = 4 * g + r;
+          if (row < nr) {
+            const float wm = sId[row] > 0 ? sWr[row] : 0.0f;
+#pragma unroll
+            for (int c = 0; c < KE; ++c) {
+              const int k = x + 16 * c;
+              dhist[(row0 + row) * K + k] = acc[r][c] + sGo[k] * wm;
+            }
+          }
+        }
+      } else {  // G += hᵀ·dZ1
+#pragma unroll 2
+        for (int r = 0; r < TILE; ++r) {
+          float hv[KPT], bv[IE];
+          if constexpr (KPT == 4) {
+            const float4 h4 = *reinterpret_cast<const float4*>(sH + r * K + 4 * g);
+            hv[0] = h4.x;
+            hv[1] = h4.y;
+            hv[2] = h4.z;
+            hv[3] = h4.w;
+          } else {
+            const float2 h2 = *reinterpret_cast<const float2*>(sH + r * K + 2 * g);
+            hv[0] = h2.x;
+            hv[1] = h2.y;
+          }
+#pragma unroll
+          for (int e = 0; e < IE; ++e) bv[e] = sZ1[r * H1 + x + 16 * e];
+#pragma unroll
+          for (int c = 0; c < KPT; ++c) {
+#pragma unroll
+            for (int e = 0; e < IE; ++e) gk[c][e] = fmaf(hv[c], bv[e], gk[c][e]);
+          }
+        }
+      }
+    }
+    if (cur >= 0) example_end(cur);
+  }
+
+  // the block's partial rows
+  __syncthreads();
+  const size_t blk = blockIdx.x;
+  for (int e = tid; e < K * H1; e += THREADS) {
+    const float gs = sAcc[e], qg = sAcc[K * H1 + e], qs = sAcc[2 * K * H1 + e];
+    double* row = part_w1 + blk * 4 * K * H1;
+    row[e] = gs;
+    row[K * H1 + e] = qs;
+    row[2 * K * H1 + e] = qg;
+    row[3 * K * H1 + e] = gs - qs;
+  }
+  for (int i = tid; i < H1; i += THREADS) part_b1[blk * H1 + i] = sD[L::DB1 + i];
+  for (int j = tid; j < H2; j += THREADS) {
+    part_b2[blk * H2 + j] = sD[L::DB2 + j];
+    part_wo[blk * H2 + j] = sD[L::DWO + j];
+  }
+  if (!first_half) {
+#pragma unroll
+    for (int e = 0; e < IE; ++e) {
+#pragma unroll
+      for (int f = 0; f < JF; ++f) {
+        part_w2[blk * H1 * H2 + (x + 16 * e) * H2 + g + 8 * f] = dw2[e][f];
+      }
+    }
+  }
+  if (tid == 0) {
+    part_bo[blk] = sD[L::DBO];
+    if (tiles != nullptr) {
+      atomicAdd(tiles, n_tiles);
+      atomicAdd(tiles + 1, n_done);
+    }
+  }
+}
+
+template <int K, int H1, int H2>
+int launch_fused_backward(const float* dout, const float* hist,
+                          const float* query, const long long* ids,
+                          const float* wgt, const float* a1, const float* a2,
+                          const float* w1, const float* w2, const float* w_out,
+                          float* dhist, float* dquery, double* const* parts,
+                          long long* tiles, int B, int P, int grid,
+                          float inv_keep, cudaStream_t st) {
+  auto kernel = din_fused_backward_kernel<K, H1, H2>;
+  constexpr size_t bytes = FusedLayout<K, H1, H2>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, THREADS, bytes, st>>>(
+      dout, hist, query, ids, wgt, a1, a2, w1, w2, w_out, dhist, dquery,
+      parts[0], parts[1], parts[2], parts[3], parts[4], parts[5],
+      reinterpret_cast<unsigned long long*>(tiles), B, P, inv_keep);
+  return launched();
+}
 
 }  // namespace
 
@@ -604,6 +1123,41 @@ int din_fold(const float* dx, const float* dout, const float* hist,
                                              dhist, dquery, P, K);
   }
   return launched();
+}
+
+// The whole backward of a unit with two hidden layers at (K, h1, h2) =
+// (32, 80, 40) or (16, 80, 40): d_hist [B, P, K], d_query [B, K] and, in
+// `grid` double partial rows each, dW1 [4K·h1], d_b1 [h1], dW2 [h1·h2],
+// d_b2 [h2], d_w_out [h2] and d_b_out [1] (part_w1 .. part_bo), from dout
+// [B, K], hist, query, ids (int64), wgt [B·P], the activations a1 [B·P, h1]
+// and a2 [B·P, h2], W1 [4K, h1], W2 [h1, h2] and w_out [h2]; every float
+// pointer 16-B aligned. tiles (int64 [2], or null) gains the tiles in all
+// and the tiles computed. Another shape, or P above LIST·TILE, returns
+// cudaErrorInvalidValue.
+int din_fused_backward(const float* dout, const float* hist,
+                       const float* query, const long long* ids,
+                       const float* wgt, const float* a1, const float* a2,
+                       const float* w1, const float* w2, const float* w_out,
+                       float* dhist, float* dquery, double* part_w1,
+                       double* part_b1, double* part_w2, double* part_b2,
+                       double* part_wo, double* part_bo, long long* tiles,
+                       int B, int P, int K, int h1, int h2, int grid,
+                       float inv_keep, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B == 0 || P == 0) return 0;
+  if ((P + TILE - 1) / TILE > LIST) return static_cast<int>(cudaErrorInvalidValue);
+  double* const parts[6] = {part_w1, part_b1, part_w2, part_b2, part_wo, part_bo};
+  if (h1 == 80 && h2 == 40 && K == 32) {
+    return launch_fused_backward<32, 80, 40>(
+        dout, hist, query, ids, wgt, a1, a2, w1, w2, w_out, dhist, dquery,
+        parts, tiles, B, P, grid, inv_keep, st);
+  }
+  if (h1 == 80 && h2 == 40 && K == 16) {
+    return launch_fused_backward<16, 80, 40>(
+        dout, hist, query, ids, wgt, a1, a2, w1, w2, w_out, dhist, dquery,
+        parts, tiles, B, P, grid, inv_keep, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // out_i[j] = Σ_blk part_i[blk, j] for n arrays of double partial rows into

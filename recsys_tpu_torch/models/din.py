@@ -25,7 +25,10 @@ backward ``attention_backward`` once the units' output gradients have come,
 ``attention_backward_end`` once their input gradients have; a captured step
 launches them, an eager one none. ``meta['attention_counter']`` (a
 `profiling.DeviceCounter` of `interactions.ATTENTION_COUNTS`) sums both
-units' rows and real history positions on the device.
+units' rows and real history positions on the device;
+``meta['backward_tiles']`` (of `interactions.BACKWARD_TILE_COUNTS`) the
+history tiles of the units' fused backward on the card, in all and
+computed.
 
 The parameter tree is the JAX model's, so a converted JAX tree drops in.
 """
@@ -51,6 +54,7 @@ def make_din(item_vocab: int = ITEM_VOCAB, cate_vocab: int = CATE_VOCAB,
                                             use_bn=False)) -> Model:
     d = cfg.embedding_dim
     counter = profiling.DeviceCounter(interactions.ATTENTION_COUNTS)
+    tiles = profiling.DeviceCounter(interactions.BACKWARD_TILE_COUNTS)
 
     def init(gen: torch.Generator, device):
         params = {
@@ -84,10 +88,12 @@ def make_din(item_vocab: int = ITEM_VOCAB, cate_vocab: int = CATE_VOCAB,
                                                *units_in)
         att_item = interactions.din_attention(
             params["att_item"], units_in[0], batch["hist_iid"], units_in[1],
-            train=train, dropout_rate=cfg.dropout, gen=gen, counter=counter)
+            train=train, dropout_rate=cfg.dropout, gen=gen, counter=counter,
+            tile_counter=tiles)
         att_cate = interactions.din_attention(
             params["att_cate"], units_in[2], batch["hist_cate"], units_in[3],
-            train=train, dropout_rate=cfg.dropout, gen=gen, counter=counter)
+            train=train, dropout_rate=cfg.dropout, gen=gen, counter=counter,
+            tile_counter=tiles)
         if train:
             att_item, att_cate = profiling.backward_mark(
                 "attention_backward", att_item, att_cate)
@@ -118,4 +124,5 @@ def make_din(item_vocab: int = ITEM_VOCAB, cate_vocab: int = CATE_VOCAB,
         }
 
     return Model("din", init, apply, meta={"sample_features": sample_features,
-                                           "attention_counter": counter})
+                                           "attention_counter": counter,
+                                           "backward_tiles": tiles})

@@ -16,9 +16,14 @@ the products by ``torch.matmul`` on the operands the plain PyTorch unit
 (``interactions.din_attention`` on the CPU) multiplies, and everything
 else by the kernels, which compute each element with the plain version's
 float32 operations in its order: on the card the forward equals the plain
-one bitwise. The backward (`_backward_cuda`) runs four kernels a unit at
-two hidden layers and the products' cuBLAS gradients; it sums in another
-order than autograd, in a fixed one (no atomics), so it is deterministic.
+one bitwise. The backward sums in another order than autograd, in a fixed
+one (no atomics on a result), so it is deterministic. At the shapes
+`FUSED_SHAPES` (two hidden layers, DIN's) it is one kernel and the column
+sums (`fused_backward_kernel`): history tiles of `TILE_ROWS` positions
+that hold only padding are skipped, and nothing between the unit's output
+gradient and its input gradients reaches device memory; its plain version
+is `fused_backward_reference`. Any other shape takes `_backward_chain`:
+the products' cuBLAS gradients between four kernels.
 
 `din_attention_unit` draws the dropout uniforms as ``nn.dropout`` draws
 them (one ``torch.rand`` a hidden layer, in order, from ``gen``) and
@@ -40,7 +45,7 @@ from recsys_tpu_torch.ops.cuda_build import F, I, P
 
 #: every kernel's launch counts under ``din_attention``
 #: (`cuda_build.launches`); a unit with n hidden layers launches n + 2
-#: kernels forward and max(n, 1) + 2 backward
+#: kernels forward, and backward 2 at `FUSED_SHAPES`, else max(n, 1) + 2
 SOURCE = cuda_build.source(
     "din_attention.cu",
     din_build=[P] * 3 + [I] * 3 + [P],
@@ -49,6 +54,7 @@ SOURCE = cuda_build.source(
     din_head_backward=[P] * 9 + [I] * 6 + [F, P],
     din_epilogue_backward=[P] * 3 + [I] * 3 + [F, P],
     din_fold=[P] * 8 + [I] * 3 + [P],
+    din_fused_backward=[P] * 19 + [I] * 6 + [F, P],
     din_column_sums=[I] + [ctypes.POINTER(ctypes.c_longlong)] * 2
     + [ctypes.POINTER(I)] * 2 + [P])
 #: rows a block of the backward's column kernels takes (``ROWS`` of
@@ -56,6 +62,14 @@ SOURCE = cuda_build.source(
 ROWS_PER_BLOCK = 128
 #: index arithmetic on the card is 32-bit: R·max(4K, h_l) must stay below
 _MAX_ELEMS = 2 ** 31
+#: (K, h_1, h_2) that ``din_fused_backward`` is built for (its templates)
+FUSED_SHAPES = ((32, 80, 40), (16, 80, 40))
+#: history positions a tile of the fused backward (``TILE`` of the source),
+#: and the most it takes in one example (``LIST`` tiles)
+TILE_ROWS = 32
+FUSED_MAX_POSITIONS = 256 * TILE_ROWS
+#: blocks of the fused backward an SM holds (its ``__launch_bounds__``)
+FUSED_BLOCKS_PER_SM = 2
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
@@ -208,11 +222,9 @@ def _backward_plain(dout, hist, query, ids, wgt, ins, weights, keep):
     return (*fold_reference(dz, dout, hist, query, ids, wgt), grads)
 
 
-def partials(rows: int, cols, device) -> list[torch.Tensor]:
-    """Float64 partial rows [ceil(rows / `ROWS_PER_BLOCK`), c] for each
-    width c of ``cols``, views of one workspace, for the backward's
-    column kernels."""
-    nblk = -(-rows // ROWS_PER_BLOCK)
+def partials(nblk: int, cols, device) -> list[torch.Tensor]:
+    """Float64 partial rows [nblk, c] for each width c of ``cols``, views of
+    one workspace, for the backward's column kernels (one row a block)."""
     work = torch.empty((nblk * sum(cols),), dtype=torch.float64,
                        device=device)
     return [t.view(nblk, c) for t, c in
@@ -272,17 +284,111 @@ def column_sums_kernel(parts, device) -> list[torch.Tensor]:
     return outs
 
 
-def _backward_cuda(dout, hist, query, ids, wgt, ins, weights, keep):
-    """`_backward_plain` on the card: the head kernel, an epilogue-backward
-    kernel a hidden layer below the last, the fold kernel and one
-    column-sums kernel for every bias and w_out, beside cuBLAS's products.
+def fused_backward_reference(dout, hist, query, ids, wgt, ins, weights,
+                             keep):
+    """The plain version of ``din_fused_backward``: `_backward_plain` of a
+    unit with two hidden layers, by the kernel's algebra → (d_hist,
+    d_query, the weights' gradients, (tiles, tiles computed)).
+
+    History positions go in tiles of `TILE_ROWS`; a tile whose ids are all
+    0 computes nothing (its rows' d_wgt is 0, so is everything downstream).
+    X = [h, q, h⊙q, h−q] is not used: with G = Σ_p hᵀ·dZ1 [K, h_1] and
+    s = Σ_p dZ1 of each example, d_hist = dZ1·W_effᵀ with W_eff = W1_h +
+    q·W1_p + W1_d, d_query = s·(W1_q − W1_d)ᵀ + Σ_i W1_p⊙G, and dW1's row
+    groups are Σ G, Σ q⊗s, Σ q·G and Σ G − q⊗s."""
+    b, p, k = hist.shape
+    (w1, _, w2, _, w_out, _), (a1, a2) = weights, ins[1:]
+    scale = 1.0 if keep is None else _keep32(keep)[1]
+    nt = -(-p // TILE_ROWS)
+    real = ids > 0
+    computed = torch.nn.functional.pad(real, (0, nt * TILE_ROWS - p)).view(
+        b, nt, TILE_ROWS).any(dim=-1)
+    d_wgt = (hist * dout[:, None, :]).sum(dim=-1).reshape(b * p)
+    d_wgt = torch.where(real.reshape(-1), d_wgt, torch.zeros_like(d_wgt))
+    dz2 = torch.where(a2 > 0, d_wgt[:, None] * w_out.reshape(1, -1) * scale,
+                      torch.zeros_like(a2))
+    dz1 = torch.where(a1 > 0, (dz2 @ w2.t()) * scale, torch.zeros_like(a1))
+    z1 = dz1.reshape(b, p, -1)
+    g = torch.einsum("bpk,bpi->bki", hist, z1)
+    s = z1.sum(dim=1)
+    w1h, w1q, w1p, w1d = w1.split(k)
+    weff = w1h + query[:, :, None] * w1p + w1d
+    mask = real.to(hist.dtype)[:, :, None]
+    d_hist = (torch.einsum("bpi,bki->bpk", z1, weff)
+              + dout[:, None, :] * wgt.reshape(b, p, 1) * mask)
+    d_query = s @ (w1q - w1d).t() + (w1p * g).sum(dim=-1)
+    gsum = g.sum(dim=0)
+    qs = (query[:, :, None] * s[:, None, :]).sum(dim=0)
+    d_w1 = torch.cat([gsum, qs, (query[:, :, None] * g).sum(dim=0),
+                      gsum - qs])
+    grads = [d_w1, s.sum(dim=0), a1.t() @ dz2, dz2.sum(dim=0),
+             (a2 * d_wgt[:, None]).sum(dim=0).reshape(w_out.shape),
+             d_wgt.sum().reshape(1)]
+    return d_hist, d_query, grads, (b * nt, int(computed.sum()))
+
+
+def fused_backward_kernel(dout, hist, query, ids, wgt, ins, weights, keep,
+                          tiles: torch.Tensor | None = None):
+    """The card's `fused_backward_reference`: ``din_fused_backward``, which
+    writes d_hist, d_query and one float64 partial row of every weight's
+    and bias's gradient a block, then one column-sums kernel. ``tiles`` (an
+    int64 [2] on the card, or None) gains the tiles in all and the tiles
+    computed, on the card."""
+    b, p, k = hist.shape
+    (w1, _, w2, _, w_out, b_out), (a1, a2) = weights, ins[1:]
+    h1, h2 = w2.shape
+    props = torch.cuda.get_device_properties(hist.device)
+    grid = min(b, FUSED_BLOCKS_PER_SM * props.multi_processor_count)
+    parts = partials(grid, [4 * k * h1, h1, h1 * h2, h2, h2, 1],
+                     hist.device)
+    d_hist = torch.empty_like(hist)
+    d_query = torch.empty_like(query)
+    _launch("din_fused_backward", hist.device, dout.data_ptr(),
+            hist.data_ptr(), query.data_ptr(), ids.data_ptr(),
+            wgt.data_ptr(), a1.data_ptr(), a2.data_ptr(), w1.data_ptr(),
+            w2.data_ptr(), w_out.data_ptr(), d_hist.data_ptr(),
+            d_query.data_ptr(), *(t.data_ptr() for t in parts),
+            None if tiles is None else tiles.data_ptr(), b, p, k, h1, h2,
+            grid, _keep32(keep)[1] if keep is not None else 1.0)
+    sums = column_sums_kernel(parts, hist.device)
+    grads = [sums[0].view(4 * k, h1), sums[1], sums[2].view(h1, h2),
+             sums[3], sums[4].reshape(w_out.shape),
+             sums[5].reshape(b_out.shape)]
+    return d_hist, d_query, grads
+
+
+def fused(hist, ins, weights) -> bool:
+    """Whether the unit's backward takes `fused_backward_kernel`: two
+    hidden layers at one of `FUSED_SHAPES`, a history of at most
+    `FUSED_MAX_POSITIONS`, and operands aligned for float4 loads."""
+    b, p, k = hist.shape
+    return (len(ins) == 3 and b * p > 0 and p <= FUSED_MAX_POSITIONS
+            and (k, *(w.shape[1] for w in weights[:4:2])) in FUSED_SHAPES
+            and all(t.data_ptr() % 16 == 0 for t in (hist, *ins[1:])))
+
+
+def _backward_cuda(dout, hist, query, ids, wgt, ins, weights, keep, tiles):
+    """`_backward_plain` on the card: `fused_backward_kernel` where `fused`
+    holds, else `_backward_chain`."""
+    if fused(hist, ins, weights):
+        return fused_backward_kernel(dout, hist, query, ids, wgt, ins,
+                                     weights, keep, tiles)
+    return _backward_chain(dout, hist, query, ids, wgt, ins, weights, keep)
+
+
+def _backward_chain(dout, hist, query, ids, wgt, ins, weights, keep):
+    """`_backward_plain` on the card at any shape: the head kernel, an
+    epilogue-backward kernel a hidden layer below the last, the fold kernel
+    and one column-sums kernel for every bias and w_out, beside cuBLAS's
+    products.
     The column kernels write partial sums a block of `ROWS_PER_BLOCK` rows
     into one float64 workspace; the column-sums kernel adds them in order
     and rounds each total once to float32."""
     n = len(ins) - 1
     w_out, b_out = weights[-2], weights[-1]
     cols = [t.shape[1] for t in ins[1:]] + [ins[n].shape[1], 1]
-    parts = partials(ins[0].shape[0], cols, hist.device)
+    parts = partials(-(-ins[0].shape[0] // ROWS_PER_BLOCK), cols,
+                     hist.device)
     dz = head_backward_kernel(dout, hist, ids, ins[n], w_out, keep, n > 0,
                               parts[n - 1] if n else None, parts[n],
                               parts[n + 1])
@@ -301,12 +407,14 @@ def _backward_cuda(dout, hist, query, ids, wgt, ins, weights, keep):
 
 class DinAttentionUnit(torch.autograd.Function):
     """One unit: ``apply(hist [B, P, K], query [B, K], ids [B, P], rands,
-    keep, w_1, b_1, …, w_n, b_n, w_out, b_out)`` → [B, K]. ``rands`` holds
-    each hidden layer's uniforms [B·P, h_l] (None each without dropout),
-    ``keep`` is 1 − the dropout rate (None without dropout)."""
+    keep, tiles, w_1, b_1, …, w_n, b_n, w_out, b_out)`` → [B, K]. ``rands``
+    holds each hidden layer's uniforms [B·P, h_l] (None each without
+    dropout), ``keep`` is 1 − the dropout rate (None without dropout),
+    ``tiles`` the int64 [2] that the fused backward adds its tile counts to
+    (`fused_backward_kernel`), or None."""
 
     @staticmethod
-    def forward(ctx, hist, query, ids, rands, keep, *weights):
+    def forward(ctx, hist, query, ids, rands, keep, tiles, *weights):
         n = (len(weights) - 2) // 2
         x = build(hist, query)
         ins = [x]
@@ -316,7 +424,7 @@ class DinAttentionUnit(torch.autograd.Function):
         out, wgt = pool(hist, ids, torch.matmul(ins[-1], weights[-2]),
                         weights[-1])
         ctx.save_for_backward(hist, query, ids, wgt, *ins, *weights)
-        ctx.hidden, ctx.keep = n, keep
+        ctx.hidden, ctx.keep, ctx.tiles = n, keep, tiles
         return out
 
     @staticmethod
@@ -324,10 +432,11 @@ class DinAttentionUnit(torch.autograd.Function):
         hist, query, ids, wgt, *rest = ctx.saved_tensors
         n = ctx.hidden
         ins, weights = rest[:n + 1], rest[n + 1:]
-        run = _backward_cuda if hist.is_cuda else _backward_plain
-        d_hist, d_query, grads = run(dout.contiguous(), hist, query, ids, wgt,
-                                     ins, weights, ctx.keep)
-        return (d_hist, d_query, None, None, None, *grads)
+        args = (dout.contiguous(), hist, query, ids, wgt, ins, weights,
+                ctx.keep)
+        d_hist, d_query, grads = (_backward_cuda(*args, ctx.tiles)
+                                  if hist.is_cuda else _backward_plain(*args))
+        return (d_hist, d_query, None, None, None, None, *grads)
 
 
 def _check(hist, ids, query, weights) -> None:
@@ -352,10 +461,12 @@ def _check(hist, ids, query, weights) -> None:
 def din_attention_unit(params, hist_emb: torch.Tensor,
                        hist_ids: torch.Tensor, query_emb: torch.Tensor, *,
                        train: bool = False, dropout_rate: float = 0.0,
-                       gen: torch.Generator | None = None) -> torch.Tensor:
+                       gen: torch.Generator | None = None,
+                       tiles: torch.Tensor | None = None) -> torch.Tensor:
     """``interactions.din_attention``'s unit through `DinAttentionUnit`,
     each hidden layer's dropout uniforms drawn as ``nn.dropout`` draws them
-    (in train mode at a positive rate; a generator is then needed)."""
+    (in train mode at a positive rate; a generator is then needed);
+    ``tiles`` as the Function takes it."""
     b, p, _ = hist_emb.shape
     drop = train and dropout_rate > 0.0
     if drop and gen is None:
@@ -373,4 +484,4 @@ def din_attention_unit(params, hist_emb: torch.Tensor,
         weights = [w.contiguous() for w in weights]
     return DinAttentionUnit.apply(
         hist_emb.contiguous(), query_emb.contiguous(), ids.contiguous(),
-        rands, 1.0 - dropout_rate if drop else None, *weights)
+        rands, 1.0 - dropout_rate if drop else None, tiles, *weights)

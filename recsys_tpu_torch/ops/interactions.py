@@ -97,13 +97,18 @@ def din_attention_init(gen: torch.Generator, emb_dim: int,
 #: the counts of `din_attention` in train mode: the rows its MLP computed
 #: (B·P a call) and the real, unpadded, history positions among them
 ATTENTION_COUNTS = ("rows", "real")
+#: the counts of the unit's fused backward on the card (``tile_counter``):
+#: its history tiles in all and those it computed, the others holding only
+#: padding
+BACKWARD_TILE_COUNTS = ("tiles", "computed")
 
 
 def din_attention(params, hist_emb: torch.Tensor, hist_ids: torch.Tensor,
                   query_emb: torch.Tensor, *, train: bool = False,
                   dropout_rate: float = 0.0,
                   gen: torch.Generator | None = None,
-                  counter: profiling.DeviceCounter | None = None
+                  counter: profiling.DeviceCounter | None = None,
+                  tile_counter: profiling.DeviceCounter | None = None
                   ) -> torch.Tensor:
     """Per-position attention MLP over [hist, query, hist⊙query, hist−query]
     on the flattened [B·P, 4K] rows (dropout after each hidden layer in
@@ -113,7 +118,8 @@ def din_attention(params, hist_emb: torch.Tensor, hist_ids: torch.Tensor,
     hist_emb [B, P, K], hist_ids [B, P], query_emb [B, K]. A padded
     position adds exactly zero, so padding P further leaves the result
     unchanged. In train mode ``counter`` (of `ATTENTION_COUNTS`) adds the
-    rows and the real positions on the device.
+    rows and the real positions on the device, and on the card the fused
+    backward adds its tiles to ``tile_counter`` (of `BACKWARD_TILE_COUNTS`).
 
     CUDA tensors take `din_attention_op.din_attention_unit`: the same
     products, the work round them in hand-written kernels, the same
@@ -121,10 +127,15 @@ def din_attention(params, hist_emb: torch.Tensor, hist_ids: torch.Tensor,
     b, p, _ = hist_emb.shape
     if train and counter is not None:
         counter.add(hist_ids, b * p, torch.count_nonzero(hist_ids))
-    unit = (din_attention_op.din_attention_unit if hist_emb.is_cuda
-            else din_attention_plain)
-    return unit(params, hist_emb, hist_ids, query_emb, train=train,
-                dropout_rate=dropout_rate, gen=gen)
+    if not hist_emb.is_cuda:
+        return din_attention_plain(params, hist_emb, hist_ids, query_emb,
+                                   train=train, dropout_rate=dropout_rate,
+                                   gen=gen)
+    tiles = (tile_counter.sums(hist_ids)
+             if train and tile_counter is not None else None)
+    return din_attention_op.din_attention_unit(
+        params, hist_emb, hist_ids, query_emb, train=train,
+        dropout_rate=dropout_rate, gen=gen, tiles=tiles)
 
 
 def din_attention_plain(params, hist_emb: torch.Tensor,

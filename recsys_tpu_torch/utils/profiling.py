@@ -130,14 +130,20 @@ class DeviceCounter:
         if len(values) != len(self.names):
             raise ValueError(f"DeviceCounter: {len(values)} values for the "
                              f"counts {self.names}")
+        sums = self.sums(like)
+        for i, v in enumerate(values):
+            sums[i].add_(v)
+
+    def sums(self, like: torch.Tensor) -> torch.Tensor:
+        """The int64 vector of the counts on ``like``'s device, in `names`'
+        order (made at the first call), for a kernel to add into."""
         with self._lock:
             sums = self._sums.get(like.device)
             if sums is None:
                 sums = self._sums[like.device] = torch.zeros(
                     (len(self.names),), dtype=torch.int64,
                     device=like.device)
-        for i, v in enumerate(values):
-            sums[i].add_(v)
+        return sums
 
     def totals(self, device) -> dict[str, int] | None:
         """{count: its sum so far} on ``device`` (a host read), or None

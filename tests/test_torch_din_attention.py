@@ -5,12 +5,15 @@
 On the CPU: each kernel's plain version, chained, and the Function built
 from them give today's forward bitwise, from the same dropout uniforms;
 their gradients agree within 1e-6 of each leaf's norm, and of hist's and
-query's; eval draws nothing; the CPU path never takes the Function. On the
-card (marker ``gpu``, skipped without one): at the benchmark cell's shapes
-the kernels' activations, weights and pooled outputs equal the plain
-CUDA path's bitwise, the gradients agree within 1e-6, a graphed DIN step
-equals the eager one bitwise and the launches are counted. This file
-imports neither jax nor the JAX package:
+query's; eval draws nothing; the CPU path never takes the Function; the
+fused backward's algebra (`fused_backward_reference`) is the plain
+backward's, and the padded rows it skips add nothing to it. On the card
+(marker ``gpu``, skipped without one): at the benchmark cell's shapes the
+kernels' activations, weights and pooled outputs equal the plain CUDA
+path's bitwise, the gradients agree within 1e-6, the fused backward
+agrees with the plain one, repeats its bits and counts its tiles, a
+graphed DIN step equals the eager one bitwise and the launches are
+counted. This file imports neither jax nor the JAX package:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_din_attention.py
 """
@@ -29,7 +32,9 @@ B = 3
 
 def _unit(seed, p, k, widths, pad, device="cpu", b=B):
     """(params, hist [b, p, k], ids [b, p], query [b, k]); ``pad``: 'all'
-    positions padding, 'none', or 'some' (a random share, row 0 whole)."""
+    positions padding, 'none', 'some' (a random share, row 0 whole), or
+    'left' (histories left-aligned: example 0 all padding, example 1
+    whole, the others of random lengths)."""
     gen = torch.Generator().manual_seed(seed)
     params = interactions.din_attention_init(gen, k, widths, "cpu")
     for layer in (*params["mlp"], params["out"]):
@@ -41,6 +46,10 @@ def _unit(seed, p, k, widths, pad, device="cpu", b=B):
         ids.zero_()
     elif pad == "some":
         ids[1:] *= torch.rand(b - 1, p, generator=gen) < 0.6
+    elif pad == "left":
+        lens = torch.randint(0, p + 1, (b,), generator=gen)
+        lens[0], lens[1] = 0, p
+        ids *= torch.arange(p)[None, :] < lens[:, None]
     to = lambda t: t.to(device)                                # noqa: E731
     params = {"mlp": [{k_: to(v) for k_, v in l.items()}
                       for l in params["mlp"]],
@@ -101,7 +110,7 @@ def test_plain_versions_and_the_function_give_todays_forward(p, k, widths,
     rands, keep = _rands(params, B, p, train, 7)
     assert torch.equal(_plain_chain(params, hist, ids, query, rands,
                                     keep)[0], want)
-    got = da.DinAttentionUnit.apply(hist, query, ids, rands, keep,
+    got = da.DinAttentionUnit.apply(hist, query, ids, rands, keep, None,
                                     *_leaves(params))
     assert torch.equal(got, want)
     got = da.din_attention_unit(params, hist, ids, query, train=train,
@@ -144,10 +153,81 @@ def test_the_functions_gradients_agree_with_autograds(p, k, widths, pad,
     _close(got, want)
 
 
+def _backward_inputs(params, hist, ids, query, seed=9):
+    """(dout, hist, query, ids, wgt, ins, weights, keep) of a unit in train
+    mode, as the Function's backward takes them."""
+    b, p, k = hist.shape
+    rands, keep = _rands(params, b, p, True, seed, hist.device)
+    _, acts, wgt = _plain_chain(params, hist, ids, query, rands, keep)
+    dout = torch.randn(b, k, generator=torch.Generator().manual_seed(seed)
+                       ).to(hist.device)
+    return (dout, hist, query, ids, wgt,
+            [da.build_reference(hist, query), *acts], _leaves(params), keep)
+
+
+def _tiles(ids):
+    """[B, ceil(P / TILE_ROWS)]: whether each history tile holds an id."""
+    b, p = ids.shape
+    nt = -(-p // da.TILE_ROWS)
+    return torch.nn.functional.pad(ids > 0, (0, nt * da.TILE_ROWS - p)).view(
+        b, nt, da.TILE_ROWS).any(dim=-1)
+
+
+def _skipped_rows(ids):
+    """[B, P]: the positions of tiles that hold only padding."""
+    return ~_tiles(ids).repeat_interleave(da.TILE_ROWS, dim=1)[:,
+                                                              :ids.shape[1]]
+
+
+@pytest.mark.parametrize("pad", ["some", "none", "all", "left"])
+@pytest.mark.parametrize("p, k", [(1, 16), (7, 32), (32, 32), (45, 16),
+                                  (128, 32)])
+def test_the_fused_backwards_algebra_is_the_plain_backward(p, k, pad):
+    """`fused_backward_reference` (the kernel's algebra: W_eff, G and s in
+    place of X, padded tiles skipped) gives `_backward_plain`'s outputs
+    within 1e-6 of each one's norm, zeros on the skipped tiles' rows, and
+    counts the tiles that hold an id."""
+    params, hist, ids, query = _unit(p * 3 + k, p, k, (12, 8), pad, b=5)
+    args = _backward_inputs(params, hist, ids, query)
+    d_hist, d_query, grads, (tiles, computed) = da.fused_backward_reference(
+        *args)
+    want = da._backward_plain(*args)
+    _close([d_hist, d_query, *grads], [want[0], want[1], *want[2]])
+    assert bool((d_hist[_skipped_rows(ids)] == 0).all())
+    assert (tiles, computed) == (_tiles(ids).numel(), int(_tiles(ids).sum()))
+
+
+@pytest.mark.parametrize("widths", [(12, 8), (8,)], ids=["2layer", "1layer"])
+@pytest.mark.parametrize("pad", ["some", "left", "all"])
+def test_padded_rows_add_nothing_to_the_plain_backward(pad, widths):
+    """The invariant the fused backward's skip rests on: `_backward_plain`
+    with the padded rows taken out of every product and sum (the real rows
+    alone, each as an example of one position) gives the same weights',
+    biases', w_out's and b_out's gradients and d_query within 1e-6, and
+    d_hist is exactly zero on the padded rows."""
+    p, k = 40, 16
+    params, hist, ids, query = _unit(len(pad) + p, p, k, widths, pad, b=5)
+    dout, hist, query, ids, wgt, ins, weights, keep = _backward_inputs(
+        params, hist, ids, query)
+    d_hist, d_query, grads = da._backward_plain(dout, hist, query, ids, wgt,
+                                                ins, weights, keep)
+    assert bool((d_hist[ids == 0] == 0).all())
+    real = (ids > 0).reshape(-1)
+    example = torch.arange(ids.shape[0]).repeat_interleave(p)[real]
+    n = int(real.sum())
+    r_hist, r_query, r_grads = da._backward_plain(
+        dout[example], hist.reshape(-1, k)[real][:, None, :], query[example],
+        ids.reshape(-1)[real][:, None], wgt[real], [t[real] for t in ins],
+        weights, keep)
+    want_query = torch.zeros_like(d_query).index_add_(0, example, r_query)
+    _close([r_hist.reshape(n, k), want_query, *r_grads],
+           [d_hist.reshape(-1, k)[real], d_query, *grads])
+
+
 def test_without_hidden_layers_the_function_is_the_plain_unit():
     params, hist, ids, query = _unit(1, 9, 16, (), "some")
     want = _today(params, hist, ids, query, False, None)
-    got = da.DinAttentionUnit.apply(hist, query, ids, [], None,
+    got = da.DinAttentionUnit.apply(hist, query, ids, [], None, None,
                                     *_leaves(params))
     assert torch.equal(got, want)
     _close(_grads(lambda w, h, q: da.din_attention_unit(w, h, ids, q),
@@ -204,8 +284,10 @@ def test_the_keep_constants_are_float32s():
 
 def test_the_source_exports_each_entry_point_the_wrapper_binds():
     """``csrc/din_attention.cu`` (built only on the card) defines each C
-    entry point with the wrapper's argument count, and its ``ROWS`` is the
-    wrapper's `ROWS_PER_BLOCK`."""
+    entry point with the wrapper's argument count, and its ``ROWS``,
+    ``TILE``, ``LIST`` and the fused kernel's blocks an SM are the
+    wrapper's `ROWS_PER_BLOCK`, `TILE_ROWS`, `FUSED_MAX_POSITIONS` and
+    `FUSED_BLOCKS_PER_SM`."""
     with open(da.SOURCE) as f:
         src = f.read()
     body = src[src.index('extern "C" {'):]
@@ -214,6 +296,11 @@ def test_the_source_exports_each_entry_point_the_wrapper_binds():
         assert m, name
         assert len(m.group(1).split(",")) == len(args), name
     assert re.search(rf"constexpr int ROWS = {da.ROWS_PER_BLOCK};", src)
+    assert re.search(rf"constexpr int TILE = {da.TILE_ROWS};", src)
+    lst = int(re.search(r"constexpr int LIST = (\d+);", src).group(1))
+    assert lst * da.TILE_ROWS == da.FUSED_MAX_POSITIONS
+    assert re.search(r"__launch_bounds__\(THREADS, "
+                     rf"{da.FUSED_BLOCKS_PER_SM}\)", src)
 
 
 # ---------------------------------------------------------------- on the card
@@ -307,11 +394,14 @@ def test_card_gradients_agree_with_the_plain_cuda_path(cuda_device, pad, k,
 
 @pytest.mark.gpu
 def test_launches_are_counted_per_unit(cuda_device):
-    """n + 2 kernels forward and max(n, 1) + 2 backward a unit."""
-    for widths in ((80, 40), (36,), ()):
-        params, hist, ids, query = _unit(3, 16, 32, widths, "some",
+    """n + 2 kernels forward a unit; backward 2 (the fused kernel and the
+    column sums) at `FUSED_SHAPES`, else max(n, 1) + 2."""
+    for k, widths in ((32, (80, 40)), (16, (80, 40)), (32, (36,)), (32, ()),
+                      (32, (80, 36))):
+        params, hist, ids, query = _unit(3, 16, k, widths, "some",
                                          cuda_device, b=64)
         n = len(widths)
+        fused = (k, *widths) in da.FUSED_SHAPES
         with cuda_build.counting() as launches, torch.no_grad():
             da.din_attention_unit(params, hist, ids, query)
         assert launches["din_attention"] == n + 2
@@ -320,7 +410,8 @@ def test_launches_are_counted_per_unit(cuda_device):
                 w, h, ids, q, train=True, dropout_rate=0.1,
                 gen=_gen(5, cuda_device)), params, hist, query)
             torch.cuda.synchronize()
-        assert launches["din_attention"] == (n + 2) + (max(n, 1) + 2)
+        assert launches["din_attention"] == (n + 2) + (
+            2 if fused else max(n, 1) + 2)
 
 
 @pytest.mark.gpu
@@ -328,7 +419,8 @@ def test_a_graphed_din_call_equals_the_eager_steps_and_counts_replays(
         cuda_device):
     """DIN at the cell's widths (K = 32, 80-40, dropout 0.1), B = 256,
     P = 32: two devgen calls of K = 5, graphed and eager, bitwise; the
-    launches of the graphed call are the eager call's (16 a step)."""
+    launches of the graphed call are the eager call's (12 a step: each
+    unit's four forward kernels, its fused backward and column sums)."""
     from recsys_tpu_torch.core import tree as tree_util
     from recsys_tpu_torch.core.config import ModelConfig
     from recsys_tpu_torch.data import amazon
@@ -360,4 +452,89 @@ def test_a_graphed_din_call_equals_the_eager_steps_and_counts_replays(
     assert torch.equal(l_e, l_g)
     for a, b in zip(t_e, t_g, strict=True):
         assert torch.equal(a, b)
-    assert n_e == n_g == 5 * 2 * 8
+    assert n_e == n_g == 5 * 2 * 6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pad", ["left", "some", "none"])
+@pytest.mark.parametrize("b, p", [(1024, 128), (1024, 32)],
+                         ids=["cell", "smoke"])
+def test_the_fused_backward_agrees_with_the_plain_backward_on_the_card(
+        cuda_device, b, p, pad):
+    """At the DIN cell's unit (B = 1,024, P = 128, K = 32, 80-40, dropout
+    0.1) and at ``chip_smoke.py``'s DIN training (P = 32), with
+    left-aligned padding (an example all padding, one whole), padding
+    scattered inside the histories, or none: `fused_backward_kernel`
+    within the file's tolerances of `_backward_plain` on the card (1e-6
+    beyond the plain path's own distance from the float64 backward), exact
+    zeros on the skipped tiles' rows of d_hist, the same bits in a second
+    run and in a graph's replay, and its tile counter at the tiles that
+    hold a nonzero id."""
+    params, hist, ids, query = _unit(p + len(pad), p, 32, (80, 40), pad,
+                                     cuda_device, b=b)
+    args = _backward_inputs(params, hist, ids, query)
+    assert da.fused(hist, args[5], args[6])
+    tiles = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+    d_hist, d_query, grads = da.fused_backward_kernel(*args, tiles)
+    got = [d_hist, d_query, *grads]
+    want = da._backward_plain(*args)
+    want = [want[0], want[1], *want[2]]
+    dout, hist_, query_, ids_, wgt, ins, weights, keep = args
+    exact = da._backward_plain(
+        dout.double(), hist_.double(), query_.double(), ids_, wgt.double(),
+        [t.double() for t in ins], [t.double() for t in weights], keep)
+    exact = [exact[0], exact[1], *exact[2]]
+    for g, w, e in zip(got, want, exact, strict=True):
+        assert _err(g, w) <= 1e-6 + _err(w, e)
+        assert _err(g, e) <= 1e-6 + _err(w, e)
+    assert bool((d_hist[_skipped_rows(ids)] == 0).all())
+    computed = _tiles(ids)
+    assert tiles.tolist() == [computed.numel(), int(computed.sum())]
+    again = da.fused_backward_kernel(*args)
+    assert all(torch.equal(a, c) for a, c in
+               zip(got, [again[0], again[1], *again[2]], strict=True))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        da.fused_backward_kernel(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = da.fused_backward_kernel(*args, tiles)
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(
+        got, [replayed[0], replayed[1], *replayed[2]], strict=True))
+    assert tiles.tolist() == [3 * computed.numel(), 3 * int(computed.sum())]
+
+
+@pytest.mark.gpu
+def test_a_din_step_counts_its_backward_tiles(cuda_device):
+    """DIN's ``meta['backward_tiles']`` after graphed devgen steps: each
+    step's two units add the batch's tiles and those that hold an id, as
+    an eager step does."""
+    from recsys_tpu_torch.core.config import ModelConfig
+    from recsys_tpu_torch.data import amazon
+    from recsys_tpu_torch.models.api import make_model
+    from recsys_tpu_torch.train import fast
+    from recsys_tpu_torch.train import train_state as TS
+
+    ds = amazon.synthetic_din(n_users=300, item_vocab=500, cate_vocab=20,
+                              seed=3)
+    data = fast.stage_dataset(
+        {"i_id": ds.i_id, "i_cate": ds.i_cate, "hist_iid": ds.hist_iid,
+         "hist_cate": ds.hist_cate, "label": ds.label}, cuda_device)
+    totals = {}
+    for graphed in (False, True):
+        model = make_model("din", 500, 20, ModelConfig(
+            name="din", embedding_dim=32, use_bn=False, dropout=0.1))
+        ts, tx = TS.create_train_state(model, 4, 1e-3, cuda_device)
+        steps = fast.make_scanned_train_step_devgen(
+            model, tx, data["label"].shape[0], 128, graphed=graphed)
+        steps(ts, data, 4, 0)
+        totals[graphed] = model.meta["backward_tiles"].totals(cuda_device)
+    p = data["hist_iid"].shape[1]
+    assert totals[False] == totals[True]
+    assert totals[True]["tiles"] == 4 * 2 * 128 * -(-p // da.TILE_ROWS)
+    assert 0 < totals[True]["computed"] <= totals[True]["tiles"]

@@ -123,6 +123,33 @@ def test_the_counter_sums_rows_and_real_positions():
     assert counter.totals("cpu")["rows"] == 2 * 3 * 32 * p
 
 
+def test_a_counter_hands_out_the_vector_it_adds_into():
+    """`DeviceCounter.sums` is the int64 vector `add` adds into, made once
+    a device: what a kernel adds there, `totals` reads."""
+    counter = profiling.DeviceCounter(("tiles", "computed"))
+    like = torch.zeros(1)
+    sums = counter.sums(like)
+    assert sums.dtype == torch.int64 and sums.tolist() == [0, 0]
+    counter.add(like, 4, 3)
+    sums[1] += 2                         # as the fused backward adds
+    assert counter.sums(like) is sums
+    assert counter.totals("cpu") == {"tiles": 4, "computed": 5}
+
+
+def test_the_cpu_path_counts_no_backward_tiles():
+    """DIN's ``meta['backward_tiles']`` counts the card's fused backward
+    only: a training step on the CPU leaves it unmade."""
+    model, data = _din(), _din_data()
+    ts, tx = TS.create_train_state(model, 0, 1e-3, "cpu")
+    tiles = model.meta["backward_tiles"]
+    assert tiles.names == interactions.BACKWARD_TILE_COUNTS
+    idx = torch.randint(0, data["label"].shape[0], (2, 16),
+                        generator=torch.Generator().manual_seed(2))
+    fast.make_scanned_train_step(model, tx)(ts, data, idx)
+    assert tiles.totals("cpu") is None
+    assert model.meta["attention_counter"].totals("cpu") is not None
+
+
 def test_a_counter_refuses_the_wrong_number_of_values():
     counter = profiling.DeviceCounter(("a", "b"))
     with pytest.raises(ValueError, match="1 values"):
