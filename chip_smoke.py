@@ -77,6 +77,16 @@ without the package beside it. On a card it
      (within 1e-6) through the Function against autograd over the plain
      unit, timed in a CUDA graph; DIN's training phase then counts 8
      launches a unit a step and 4 an eval batch;
+   - DLRM's table kernels at the DLRM cell's shapes (batch 8,192, 214
+     ids a row, 26,500,127 rows x 128): the segment sum's sparse mode
+     through the bag map against ``torch.unique`` and ``index_add_``
+     (ids and count bitwise, rows within 1e-5 of each row's sum of |g|),
+     row-wise Adagrad over the touched rows against its plain version
+     (1e-6 relative on the accumulators, 2e-6 on the rows, the others
+     bitwise unchanged), each timed beside its bound; then 100 steps of
+     full-width DLRM through the graphed devgen call, one row gather,
+     sparse sum and row-wise Adagrad launch a step counted from 0, and no
+     table-sized allocation;
 3. serving: full-width xDeepFM, DCN and DIN with seeded random weights,
    exported, each loaded graphed (the default on the card) and eagerly
    (``graphed=False``): ``warmup`` must capture one CUDA graph per batch
@@ -1311,6 +1321,214 @@ def din_attention_phase(da, dev) -> dict:
           f"plain: {', '.join('%.4f' % v for v in t)}); forward bitwise, "
           f"gradients within {err:.2e} of each one's norm", flush=True)
     return out
+
+
+# DLRM-DCNv2 at one card's share of MLPerf's 8-card Criteo 1TB deployment
+# (the DLRM cell's shapes): the rows held of each field (each table over 1M
+# rows split row-wise over the 8 cards), its bag sizes, the card's batch
+DLRM_ROWS = (5_000_000, 39_060, 17_295, 7_424, 20_265, 3, 7_122, 1_543, 63,
+             5_000_000, 383_495, 405_282, 10, 2_209, 11_938, 155, 4, 976, 14,
+             5_000_000, 5_000_000, 5_000_000, 590_152, 12_973, 108, 36)
+DLRM_BAGS = (3, 2, 1, 2, 6, 1, 1, 1, 1, 7, 3, 8, 1, 6, 9, 5, 1, 1, 1, 12,
+             100, 27, 10, 3, 1, 1)
+DLRM_BATCH = 8192
+DLRM_DIM = 128
+DLRM_LR, DLRM_EPS = 0.005, 1e-8
+DLRM_TIMED = 10                # calls in each timed CUDA graph
+# a summed row's tolerance, of its Σ|g|: float32 sums in another order read
+# far below it, and an id left out or added twice moves a row by about 1/n
+# of it (n its ids, at most about 5,000 on the 3-row field)
+DLRM_SUM_TOL = 1e-5
+DLRM_SET = 200_000             # rows of the graphed training run's set
+DLRM_STEPS = 2 * K             # graphed training steps
+
+
+def _dlrm_ids(gen, n: int, dev) -> torch.Tensor:
+    """[n, Σ bags] rows of DLRM's packed table: each bag's first id
+    floor(V·u^2.2) (hot rows at the front of each field), its others
+    uniform over the field's V rows, each field from its offset."""
+    cols, lo = [], 0
+    for v, size in zip(DLRM_ROWS, DLRM_BAGS):
+        u = torch.rand((n, size), generator=gen, device=dev)
+        u[:, 0].pow_(2.2)
+        cols.append(u.mul_(v).floor_().long().clamp_(max=v - 1) + lo)
+        lo += v
+    return torch.cat(cols, dim=1)
+
+
+def dlrm_phase(ss, ra, dev) -> dict:
+    """DLRM's two table kernels at the DLRM cell's shapes, then a graphed
+    DLRM training run at its widths:
+
+    - the sparse segment sum (``segment_sum_sparse``): the 1,753,088 ids of
+      a batch of 8,192 (214 a row) into the 26,500,127-row packed table,
+      each id taking its bag's row of a pooled [212,992, 128] gradient
+      through the bag map, against the plain version (``torch.unique``,
+      ``index_add_``) on the card: the distinct ids, their count and the
+      sentinel places bitwise, each summed row within `DLRM_SUM_TOL` of
+      its Σ|g|, and two calls bitwise equal;
+    - row-wise Adagrad over those rows of a [26,500,127, 128] table against
+      the plain version: accumulators within 1e-6 relative, rows within
+      2e-6 relative and 1e-7 absolute (the accumulator's rounding through
+      √), every other row and accumulator bitwise unchanged;
+
+    each timed as device time a call in a CUDA graph of `DLRM_TIMED` and
+    back to back, the plain version back to back (it reads the count
+    back), beside the bound: its bytes over 3.35 TB/s, each input read
+    once and each output written once, ids at 8 bytes and rows float32.
+    Then `DLRM_STEPS` steps of full-width DLRM (the cell's rows, bags and
+    widths, the model's own init, row-wise Adagrad) through the graphed
+    devgen K-step call on a set of `DLRM_SET` rows made on the card: the
+    loss finite; the launches, counted from 0 just before the run, one
+    row gather, one sparse segment sum and one row-wise Adagrad a step and
+    no Adam; the bag counter's ids those of the steps; and the memory the
+    run allocates above what it starts from under one table (a dense
+    gradient would be one more). → the kernels' and the run's numbers."""
+    from recsys_tpu_torch.embeddings import table as emb_table
+    from recsys_tpu_torch.models.api import make_model
+    from recsys_tpu_torch.ops import cuda_build
+    from recsys_tpu_torch.train import fast
+    from recsys_tpu_torch.train import train_state as TS
+
+    v, d, b, f = sum(DLRM_ROWS), DLRM_DIM, DLRM_BATCH, len(DLRM_ROWS)
+    gen = torch.Generator(device=dev).manual_seed(25)
+    flat = _dlrm_ids(gen, b, dev).reshape(-1)
+    n = flat.shape[0]
+    pooled = torch.randn((b * f, d), generator=gen, device=dev)
+    grad_rows = emb_table.bag_grad_rows(b, DLRM_BAGS, dev)
+
+    def kern_sum():
+        return ss.segment_sum_sparse(flat, pooled, v, grad_rows)
+
+    def plain_sum():
+        return ss.segment_sum_sparse_reference(flat, pooled, v, grad_rows)
+
+    got, want = kern_sum(), plain_sum()
+    again = kern_sum()
+    count = int(got.count)
+    _check(count == int(want.count) and torch.equal(got.ids, want.ids),
+           f"dlrm sparse sum: {count} distinct ids, the plain version "
+           f"{int(want.count)}, or other ids")
+    scale = ss.segment_sum_sparse_reference(flat, pooled.abs(), v,
+                                            grad_rows).rows[:count]
+    err = float(((got.rows[:count] - want.rows[:count]).abs()
+                 / scale.clamp_min(1e-30)).max())
+    _check(err <= DLRM_SUM_TOL, f"dlrm sparse sum: a row differs by {err} "
+                                "of its sum of |g|")
+    _check(torch.equal(got.rows[:count], again.rows[:count]),
+           "dlrm sparse sum: two calls differ")
+    del want, again, scale
+    t = [_graph_ms(f_, DLRM_TIMED) for f_ in (kern_sum, kern_sum)]
+    s_ms = sum(t) / 2
+    s_host = _cuda_ms(kern_sum, DLRM_TIMED)
+    s_plain = _cuda_ms(plain_sum, 3)
+    s_bound, _ = _bound(8 * n + 4 * n + 4 * b * f * d + 8 * n
+                        + 4 * d * count + 8, d * n)
+    print(f"dlrm sparse sum: {n} ids into {v} x {d} rows, {count} distinct: "
+          f"largest difference {err:.2e} of a row's sum of |g| (tolerance "
+          f"{DLRM_SUM_TOL}), two calls bitwise equal; device ms a call in a "
+          f"CUDA graph {s_ms:.4f} ({', '.join('%.4f' % x for x in t)}), "
+          f"back to back {s_host:.4f}, plain {s_plain:.4f}, bound "
+          f"{s_bound:.4f} (bytes: {s_bound / s_ms:.1%} of it)", flush=True)
+
+    table = torch.empty((v, d), device=dev).uniform_(-1, 1, generator=gen)
+    acc = torch.rand((v,), generator=gen, device=dev)
+    want_t, want_a = table.clone(), acc.clone()
+    ra.rowwise_adagrad(table, acc, got, DLRM_LR, DLRM_EPS)
+    ra.rowwise_adagrad_reference(want_t, want_a, got, DLRM_LR, DLRM_EPS)
+    touched = got.ids[:count]
+    a_err = float(((acc[touched] - want_a[touched]).abs()
+                   / want_a[touched]).max())
+    r_err = float(((table[touched] - want_t[touched]).abs()
+                   / (want_t[touched].abs() + 0.05)).max())
+    _check(a_err <= 1e-6 and r_err <= 2e-6,
+           f"dlrm row-wise adagrad: accumulators differ by {a_err}, rows by "
+           f"{r_err} (relative)")
+    table[touched], acc[touched] = want_t[touched], want_a[touched]
+    _check(torch.equal(table, want_t) and torch.equal(acc, want_a),
+           "dlrm row-wise adagrad: an untouched row or accumulator changed")
+    del want_t, want_a
+
+    def kern_update():
+        ra.rowwise_adagrad(table, acc, got, DLRM_LR, DLRM_EPS)
+
+    def plain_update():
+        ra.rowwise_adagrad_reference(table, acc, got, DLRM_LR, DLRM_EPS)
+
+    t = [_graph_ms(kern_update, DLRM_TIMED) for _ in range(2)]
+    u_ms = sum(t) / 2
+    u_host = _cuda_ms(kern_update, DLRM_TIMED)
+    u_plain = _cuda_ms(plain_update, 3)
+    u_bound, _ = _bound(count * (8 + 4 * d + 2 * 4 * d + 2 * 4),
+                        count * (5 * d + 4))
+    print(f"dlrm row-wise adagrad: {count} rows of {v} x {d}: accumulators "
+          f"within {a_err:.2e}, rows within {r_err:.2e} of the plain "
+          f"version, the other rows bitwise unchanged; device ms a call in "
+          f"a CUDA graph {u_ms:.4f} ({', '.join('%.4f' % x for x in t)}), "
+          f"back to back {u_host:.4f}, plain {u_plain:.4f}, bound "
+          f"{u_bound:.4f} (bytes: {u_bound / u_ms:.1%} of it)", flush=True)
+    del table, acc, got, pooled
+    torch.cuda.empty_cache()
+
+    model = make_model("dlrm_dcnv2", DLRM_ROWS, DLRM_BAGS,
+                       embedding_dim=DLRM_DIM)
+    ts, tx = TS.create_train_state(model, 0, DLRM_LR, dev)
+    lo = torch.as_tensor(np.concatenate([[0], np.cumsum(DLRM_ROWS)[:-1]]),
+                         device=dev)
+    data = {"ids": _dlrm_ids(gen, DLRM_SET, dev) - lo.repeat_interleave(
+                torch.as_tensor(DLRM_BAGS, device=dev)),
+            "dense": torch.log1p(torch.randn((DLRM_SET, 13), generator=gen,
+                                             device=dev).exp_()),
+            "label": (torch.rand((DLRM_SET,), generator=gen, device=dev)
+                      < 0.25).float()}
+    steps = fast.make_scanned_train_step_devgen(model, tx, DLRM_SET, b)
+    table_bytes = ts.params["table"].numel() * 4
+    counter = model.meta["bag_counter"]
+    ids0 = (counter.totals(dev) or {"ids": 0})["ids"]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, t_calls = [], []
+    with cuda_build.counting() as counts:
+        for c in range(DLRM_STEPS // K):
+            t0 = time.perf_counter()
+            ts, loss = steps(ts, data, K, c * K)
+            losses.append(float(loss))
+            t_calls.append(time.perf_counter() - t0)
+    above = torch.cuda.max_memory_allocated(dev) - before
+    counted = counter.totals(dev)
+    ms_step = 1e3 * sum(t_calls[1:]) / (K * (len(t_calls) - 1))
+    print(f"dlrm training at batch {b}, {v} x {d} rows held: {DLRM_STEPS} "
+          f"graphed steps, mean loss a call "
+          f"{['%.5f' % x for x in losses]}, {ms_step:.2f} ms a step "
+          f"(calls 2-{len(t_calls)}), launches {dict(counts)}, bag counter "
+          f"{counted}, memory above the start {above} B (the table "
+          f"{table_bytes} B)", flush=True)
+    _check(all(np.isfinite(losses)), f"dlrm training: loss {losses}")
+    _check(counts["row_gather"] == DLRM_STEPS
+           and counts["segment_sum"] == DLRM_STEPS
+           and counts["rowwise_adagrad"] == DLRM_STEPS
+           and counts["adam_update"] == 0,
+           f"dlrm training: launches {dict(counts)} in {DLRM_STEPS} steps, "
+           "want one row gather, sparse sum and row-wise Adagrad a step")
+    _check(counted["ids"] - ids0 == DLRM_STEPS * b * sum(DLRM_BAGS),
+           f"dlrm training: the bag counter read {counted} in "
+           f"{DLRM_STEPS} steps")
+    _check(above < table_bytes, f"dlrm training: {above} B allocated above "
+                                f"the start, a table is {table_bytes} B")
+    del ts, data, steps
+    torch.cuda.empty_cache()
+    return {"segment_sum_sparse": {
+                "ids": n, "unique": count, "max_err": err, "ms": s_ms,
+                "host_ms": s_host, "plain_ms": s_plain, "library_ms": None,
+                "bound_ms": s_bound, "bound_by": "bytes"},
+            "rowwise_adagrad": {
+                "rows": count, "max_err": max(a_err, r_err), "ms": u_ms,
+                "host_ms": u_host, "plain_ms": u_plain, "library_ms": None,
+                "bound_ms": u_bound, "bound_by": "bytes"},
+            "train": {"counts": dict(counts), "ms_step": ms_step,
+                      "losses": losses, "bag_counts": counted,
+                      "bytes_above_start": above}}
 
 
 def randomize(params, state, seed: int):
@@ -3482,6 +3700,7 @@ def main() -> None:
     from recsys_tpu_torch.ops import din_attention as da
     from recsys_tpu_torch.ops import reshape_probe as rp
     from recsys_tpu_torch.ops import row_gather as rg
+    from recsys_tpu_torch.ops import rowwise_adagrad as ra
     from recsys_tpu_torch.ops import segment_sum as ss
     from recsys_tpu_torch.serve.export import export_servable
     from recsys_tpu_torch.utils.profiling import card as card_of
@@ -3521,6 +3740,7 @@ def main() -> None:
     probe = reshape_probe_phase(rp, dev)
     adam = adam_update_phase(au, ccfg, dev)
     din_attn = din_attention_phase(da, dev)
+    dlrm = dlrm_phase(ss, ra, dev)
     print(f"kernel phases ok [{card}]: CIN fwd {fwd['ms']:.4f} ms vs plain "
           f"{fwd['plain_ms']:.4f} ms ({fwd['graph_ms']:.4f} ms of device "
           f"time), CIN bwd {bwd['ms']:.4f} ms vs plain "
@@ -3793,7 +4013,29 @@ def main() -> None:
                  "against autograd over the plain unit; launches: DIN "
                  "training (6 a unit a step, 4 an eval batch)",
          "launches": din["counts"]["din_attention"],
-         "kernels": din_attn}]}))
+         "kernels": din_attn},
+        {"name": "segment_sum_sparse", "route": "cuda",
+         "source": "recsys_tpu_torch/csrc/segment_sum.cu",
+         "replaces": "recsys_tpu/ops/pallas_kernels.py:154",
+         "note": "the segment sum's sparse mode (the JAX package has none): "
+                 "ms device time a call in a CUDA graph of "
+                 f"{DLRM_TIMED}, host_ms back to back, plain_ms the plain "
+                 "version's (torch.unique, index_add_) back to back, at the "
+                 "DLRM cell's batch (ids into its 26,500,127 rows, through "
+                 f"the bag map); launches: {DLRM_STEPS} graphed DLRM steps",
+         "launches": dlrm["train"]["counts"]["segment_sum"],
+         **dlrm["segment_sum_sparse"]},
+        {"name": "rowwise_adagrad", "route": "cuda",
+         "source": "recsys_tpu_torch/csrc/rowwise_adagrad.cu",
+         "replaces": None,
+         "note": "replaces no TPU kernel (the JAX package trains its tables "
+                 "with dense Adam); ms device time a call in a CUDA graph "
+                 f"of {DLRM_TIMED}, host_ms back to back, plain_ms the plain "
+                 "version's back to back, over the rows the DLRM cell's "
+                 "batch touches of its 26,500,127 x 128 table; launches: "
+                 f"{DLRM_STEPS} graphed DLRM steps",
+         "launches": dlrm["train"]["counts"]["rowwise_adagrad"],
+         **dlrm["rowwise_adagrad"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -80,6 +80,32 @@
 // Every output row has exactly one writer and there are no float atomics,
 // so two calls give bitwise-equal results.
 //
+// The sparse mode (segment_sum_sparse) gives the same sums without the
+// dense table: the distinct ids in ascending order, each with its summed
+// row, and their count, in buffers of N entries (N ids have at most N
+// distinct rows), the count on the card, so a step that uses it captures
+// into one CUDA graph and never writes a buffer of the table's size. It
+// exists for tables far larger than a step's ids (DLRM's 26.5M rows of
+// 128 columns: the dense output alone would be 13.6 GB a step). After the
+// sort (with prep_keys_sparse in place of prep_keys):
+//   a. run_starts flags each sorted entry that begins the run of a real
+//      key, and cub::DeviceScan::InclusiveSum turns the flags into each
+//      entry's run number plus one;
+//   b. compact_runs replaces every sorted key by its run's number (the
+//      ids out of range by N, which is no run's), writes each run's id at
+//      its number, the sentinel num_rows at every place past the count,
+//      and the count;
+//   c. segment_chunks and segment_carry sum as in the dense mode over the
+//      run numbers, which are sorted and equal inside a run exactly where
+//      the keys are, so each run's sum goes to its own row of the compact
+//      output, in the same order as the dense mode adds it.
+// grad_rows (int32 [N]) names the gradient row of each id: a bag
+// of ids pooled into one row gives each of its ids that row's gradient
+// (prep_keys_sparse writes grad_rows[i] as entry i's position), so the
+// broadcast rows are never written out. The stable sort keeps each run in
+// input order, so the sums equal those of the broadcast gradient bitwise.
+// Rows of the compact output past the count are not written.
+//
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC -o libsegment_sum.so segment_sum.cu
 // The C entry points return the cudaError_t of their calls.
@@ -87,6 +113,7 @@
 #include <cstdint>
 
 #include <cub/device/device_radix_sort.cuh>
+#include <cub/device/device_scan.cuh>
 #include <cuda_runtime.h>
 
 namespace {
@@ -111,6 +138,52 @@ __global__ void prep_keys(const long long* __restrict__ ids,
   const long long id = ids[i];
   keys[i] = static_cast<uint32_t>(id >= 0 && id < num_rows ? id : num_rows);
   pos[i] = static_cast<int>(i);
+}
+
+// prep_keys for the sparse mode: entry i's position is its gradient row,
+// grad_rows[i].
+__global__ void prep_keys_sparse(const long long* __restrict__ ids,
+                                 const int* __restrict__ grad_rows,
+                                 uint32_t* __restrict__ keys,
+                                 int* __restrict__ pos, int n,
+                                 long long num_rows) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (i >= n) return;
+  const long long id = ids[i];
+  keys[i] = static_cast<uint32_t>(id >= 0 && id < num_rows ? id : num_rows);
+  pos[i] = grad_rows[i];
+}
+
+// flags[i] = 1 where sorted entry i begins the run of a key in range.
+__global__ void run_starts(const uint32_t* __restrict__ sk,
+                           int* __restrict__ flags, int n,
+                           uint32_t num_rows) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const uint32_t k = sk[i];
+  flags[i] = k < num_rows && (i == 0 || sk[i - 1] != k);
+}
+
+// incl: the inclusive sum of run_starts' flags. Each sorted key becomes its
+// run's number (`rk`; N for an id out of range), each run's id goes to
+// uniq at that number, the places from the count on get num_rows, and
+// *count the number of runs.
+__global__ void compact_runs(const uint32_t* __restrict__ sk,
+                             const int* __restrict__ incl,
+                             uint32_t* __restrict__ rk,
+                             long long* __restrict__ uniq,
+                             long long* __restrict__ count, int n,
+                             uint32_t num_rows) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int runs = incl[n - 1];
+  const uint32_t k = sk[i];
+  const bool real = k < num_rows;
+  rk[i] = real ? static_cast<uint32_t>(incl[i] - 1) : static_cast<uint32_t>(n);
+  if (real && (i == 0 || sk[i - 1] != k)) uniq[incl[i] - 1] = k;
+  if (i >= runs) uniq[i] = num_rows;
+  if (i == 0) *count = runs;
 }
 
 // One warp per chunk of sorted (key, position) pairs: whole segments go to
@@ -281,10 +354,12 @@ size_t align_up(size_t x) { return (x + ALIGN - 1) / ALIGN * ALIGN; }
 // Byte offsets of the workspace's parts; the sort's temporary storage is
 // the rest, from `temp` on.
 struct Layout {
-  size_t keys0, keys1, pos0, pos1, head, tail, temp;
+  size_t keys0, keys1, pos0, pos1, head, tail, incl, temp;
 };
 
-Layout carve(long long n, int w) {
+// The sparse mode takes one more int per entry (`incl`, the run numbers'
+// inclusive sums); the dense mode's offsets are the same either way.
+Layout carve(long long n, int w, bool sparse = false) {
   const size_t chunks = static_cast<size_t>((n + CHUNK - 1) / CHUNK);
   size_t off = 0;
   auto take = [&off](size_t bytes) {
@@ -299,6 +374,7 @@ Layout carve(long long n, int w) {
   L.pos1 = take(4 * static_cast<size_t>(n));
   L.head = take(4 * chunks * w);
   L.tail = take(4 * chunks * w);
+  L.incl = sparse ? take(4 * static_cast<size_t>(n)) : off;
   L.temp = off;
   return L;
 }
@@ -314,6 +390,33 @@ cudaError_t launch_chunks(dim3 grid, cudaStream_t s, const uint32_t* sk,
                           uint32_t num_rows, int n_chunks) {
   segment_chunks<E><<<grid, WARPS * 32, 0, s>>>(sk, sp, g, out, head, tail,
                                                 n, w, num_rows, n_chunks);
+  return cudaGetLastError();
+}
+
+// Steps 4 and 5 over n sorted (key, position) pairs: each run of a key
+// below num_rows summed into out's row of that key.
+cudaError_t sum_sorted(cudaStream_t s, const uint32_t* sk, const int* sp,
+                       const float* g, float* out, float* head, float* tail,
+                       int ni, int w, uint32_t rows, int n_chunks) {
+  cudaError_t err;
+  const unsigned blocks = (n_chunks + WARPS - 1) / WARPS;
+  const dim3 one_tile(blocks, 1);
+  if (w == 1)
+    err = launch_chunks<32>(one_tile, s, sk, sp, g, out, head, tail, ni, w, rows, n_chunks);
+  else if (w == 2)
+    err = launch_chunks<16>(one_tile, s, sk, sp, g, out, head, tail, ni, w, rows, n_chunks);
+  else if (w <= 4)
+    err = launch_chunks<8>(one_tile, s, sk, sp, g, out, head, tail, ni, w, rows, n_chunks);
+  else if (w <= 8)
+    err = launch_chunks<4>(one_tile, s, sk, sp, g, out, head, tail, ni, w, rows, n_chunks);
+  else if (w <= 16)
+    err = launch_chunks<2>(one_tile, s, sk, sp, g, out, head, tail, ni, w, rows, n_chunks);
+  else
+    err = launch_chunks<1>(dim3(blocks, (w + 31) / 32), s, sk, sp, g, out,
+                           head, tail, ni, w, rows, n_chunks);
+  if (err != cudaSuccess || n_chunks == 1) return err;
+  segment_carry<<<dim3(blocks, (w + 31) / 32), WARPS * 32, 0, s>>>(
+      sk, head, tail, out, w, rows, n_chunks);
   return cudaGetLastError();
 }
 
@@ -380,25 +483,103 @@ extern "C" int segment_sum(const void* ids_p, const void* g_p, void* out_p,
   const auto* g = static_cast<const float*>(g_p);
   auto* head = reinterpret_cast<float*>(ws + L.head);
   auto* tail = reinterpret_cast<float*>(ws + L.tail);
-  const unsigned blocks = (n_chunks + WARPS - 1) / WARPS;
-  const dim3 one_tile(blocks, 1);
-  if (w == 1)
-    err = launch_chunks<32>(one_tile, s, sk, sp, g, out, head, tail, ni, w, rows, n_chunks);
-  else if (w == 2)
-    err = launch_chunks<16>(one_tile, s, sk, sp, g, out, head, tail, ni, w, rows, n_chunks);
-  else if (w <= 4)
-    err = launch_chunks<8>(one_tile, s, sk, sp, g, out, head, tail, ni, w, rows, n_chunks);
-  else if (w <= 8)
-    err = launch_chunks<4>(one_tile, s, sk, sp, g, out, head, tail, ni, w, rows, n_chunks);
-  else if (w <= 16)
-    err = launch_chunks<2>(one_tile, s, sk, sp, g, out, head, tail, ni, w, rows, n_chunks);
-  else
-    err = launch_chunks<1>(dim3(blocks, (w + 31) / 32), s, sk, sp, g, out,
-                           head, tail, ni, w, rows, n_chunks);
-  if (err != cudaSuccess || n_chunks == 1) return static_cast<int>(err);
-  segment_carry<<<dim3(blocks, (w + 31) / 32), WARPS * 32, 0, s>>>(
-      sk, head, tail, out, w, rows, n_chunks);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(sum_sorted(s, sk, sp, g, out, head, tail, ni, w,
+                                     rows, n_chunks));
+}
+
+// Bytes of the workspace `segment_sum_sparse` needs for n ids of width w
+// sorted over end_bit bits, into *bytes: the dense mode's parts, the run
+// numbers' sums, and the larger of the sort's and the scan's storage.
+extern "C" int segment_sum_sparse_workspace_bytes(long long n, int w,
+                                                  int end_bit,
+                                                  unsigned long long* bytes) {
+  *bytes = 0;
+  if (bad_shape(n, w, end_bit)) return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return static_cast<int>(cudaSuccess);
+  size_t sort_bytes = 0, scan_bytes = 0;
+  cub::DoubleBuffer<uint32_t> keys(nullptr, nullptr);
+  cub::DoubleBuffer<int> pos(nullptr, nullptr);
+  cudaError_t err = cub::DeviceRadixSort::SortPairs(
+      nullptr, sort_bytes, keys, pos, static_cast<int>(n), 0, end_bit);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cub::DeviceScan::InclusiveSum(nullptr, scan_bytes,
+                                      static_cast<const int*>(nullptr),
+                                      static_cast<int*>(nullptr),
+                                      static_cast<int>(n));
+  *bytes = carve(n, w, true).temp + (sort_bytes > scan_bytes ? sort_bytes
+                                                             : scan_bytes);
+  return static_cast<int>(err);
+}
+
+// The sparse mode. ids: [n] int64; g: [m, w] float32, the gradient rows;
+// grad_rows: [n] int32, id i's gradient is row grad_rows[i] of g;
+// uniq: [n] int64, the distinct ids in [0, num_rows) ascending, then
+// num_rows; rows: [n, w] float32, each distinct id's sum at its place
+// (places from the count on are not written); count: one int64, the
+// number of distinct ids. workspace: ws_bytes >=
+// segment_sum_sparse_workspace_bytes(n, w, end_bit), 256-byte aligned.
+// Launches on `stream`, does not synchronise, never reads the count back.
+extern "C" int segment_sum_sparse(const void* ids_p, const void* g_p,
+                                  const void* grad_rows_p, void* uniq_p,
+                                  void* rows_p, void* count_p, void* ws_p,
+                                  unsigned long long ws_bytes, long long n,
+                                  int w, long long num_rows, int end_bit,
+                                  void* stream) {
+  if (bad_shape(n, w, end_bit) || num_rows <= 0 || num_rows > MAX_ROWS ||
+      (num_rows >> end_bit) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* count = static_cast<long long*>(count_p);
+  if (n == 0)
+    return static_cast<int>(cudaMemsetAsync(count, 0, sizeof(long long), s));
+  const Layout L = carve(n, w, true);
+  if (ws_bytes <= L.temp || reinterpret_cast<uintptr_t>(ws_p) % ALIGN != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto* ws = static_cast<char*>(ws_p);
+  auto* keys0 = reinterpret_cast<uint32_t*>(ws + L.keys0);
+  auto* pos0 = reinterpret_cast<int*>(ws + L.pos0);
+  const int ni = static_cast<int>(n);
+  const unsigned flat = (ni + 255) / 256;
+
+  prep_keys_sparse<<<flat, 256, 0, s>>>(
+      static_cast<const long long*>(ids_p),
+      static_cast<const int*>(grad_rows_p), keys0, pos0, ni, num_rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  cub::DoubleBuffer<uint32_t> keys(keys0,
+                                   reinterpret_cast<uint32_t*>(ws + L.keys1));
+  cub::DoubleBuffer<int> pos(pos0, reinterpret_cast<int*>(ws + L.pos1));
+  size_t temp_bytes = ws_bytes - L.temp;
+  err = cub::DeviceRadixSort::SortPairs(ws + L.temp, temp_bytes, keys, pos, ni,
+                                        0, end_bit, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const auto rows = static_cast<uint32_t>(num_rows);
+  const uint32_t* sk = keys.Current();
+  // the sort's spare key buffer holds the flags, then the run numbers
+  uint32_t* rk = keys.Alternate();
+  auto* flags = reinterpret_cast<int*>(rk);
+  auto* incl = reinterpret_cast<int*>(ws + L.incl);
+  run_starts<<<flat, 256, 0, s>>>(sk, flags, ni, rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  temp_bytes = ws_bytes - L.temp;
+  err = cub::DeviceScan::InclusiveSum(ws + L.temp, temp_bytes, flags, incl,
+                                      ni, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  compact_runs<<<flat, 256, 0, s>>>(sk, incl, rk,
+                                    static_cast<long long*>(uniq_p), count,
+                                    ni, rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  // the run numbers are below n; n itself marks the ids out of range
+  return static_cast<int>(sum_sorted(
+      s, rk, pos.Current(), static_cast<const float*>(g_p),
+      static_cast<float*>(rows_p), reinterpret_cast<float*>(ws + L.head),
+      reinterpret_cast<float*>(ws + L.tail), ni, w,
+      static_cast<uint32_t>(ni), (ni + CHUNK - 1) / CHUNK));
 }
 
 extern "C" const char* kernel_error_string(int err) {

@@ -7,14 +7,18 @@
 //     recsys_mark_optimizer  before the optimizer's update
 //     recsys_mark_end        after the step's last write
 //
-// and four that bound a unit of a model inside those sections (DIN's two
-// attention units; models/din.py):
+// and four for each unit of a model inside those sections (DIN's two
+// attention units, models/din.py; DLRM's low-rank cross stack and its
+// embedding bags, models/dlrm.py):
 //
-//     recsys_unit_attention_forward       before the first unit's input
-//     recsys_unit_attention_forward_end   after the second unit's output
-//     recsys_unit_attention_backward      when the units' output gradients
-//                                         have come
-//     recsys_unit_attention_backward_end  when their input gradients have
+//     recsys_unit_<unit>_forward       before the unit's first operation
+//     recsys_unit_<unit>_forward_end   after its output
+//     recsys_unit_<unit>_backward      when its output gradients have come
+//     recsys_unit_<unit>_backward_end  when its input gradients have (the
+//                                      bags': when their sparse gradient
+//                                      has been made)
+//
+// for <unit> attention, cross and bags.
 //
 // A unit mark's name lies outside recsys_mark_, so that a reader that
 // splits a replay by the section marks passes over it.
@@ -45,6 +49,14 @@ __global__ void recsys_unit_attention_forward() {}
 __global__ void recsys_unit_attention_forward_end() {}
 __global__ void recsys_unit_attention_backward() {}
 __global__ void recsys_unit_attention_backward_end() {}
+__global__ void recsys_unit_cross_forward() {}
+__global__ void recsys_unit_cross_forward_end() {}
+__global__ void recsys_unit_cross_backward() {}
+__global__ void recsys_unit_cross_backward_end() {}
+__global__ void recsys_unit_bags_forward() {}
+__global__ void recsys_unit_bags_forward_end() {}
+__global__ void recsys_unit_bags_backward() {}
+__global__ void recsys_unit_bags_backward_end() {}
 
 // Launches mark `which` (0 begin, 1 forward, 2 backward, 3 optimizer,
 // 4 end) on `stream`; does not synchronise.
@@ -62,8 +74,8 @@ int recsys_mark(int which, void* stream) {
 }
 
 // Launches unit mark `which` (0 attention_forward, 1 attention_forward_end,
-// 2 attention_backward, 3 attention_backward_end) on `stream`; does not
-// synchronise.
+// 2 attention_backward, 3 attention_backward_end, then the same four of
+// cross, 4-7, and of bags, 8-11) on `stream`; does not synchronise.
 int recsys_unit_mark(int which, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (which) {
@@ -71,6 +83,14 @@ int recsys_unit_mark(int which, void* stream) {
     case 1: recsys_unit_attention_forward_end<<<1, 1, 0, s>>>(); break;
     case 2: recsys_unit_attention_backward<<<1, 1, 0, s>>>(); break;
     case 3: recsys_unit_attention_backward_end<<<1, 1, 0, s>>>(); break;
+    case 4: recsys_unit_cross_forward<<<1, 1, 0, s>>>(); break;
+    case 5: recsys_unit_cross_forward_end<<<1, 1, 0, s>>>(); break;
+    case 6: recsys_unit_cross_backward<<<1, 1, 0, s>>>(); break;
+    case 7: recsys_unit_cross_backward_end<<<1, 1, 0, s>>>(); break;
+    case 8: recsys_unit_bags_forward<<<1, 1, 0, s>>>(); break;
+    case 9: recsys_unit_bags_forward_end<<<1, 1, 0, s>>>(); break;
+    case 10: recsys_unit_bags_backward<<<1, 1, 0, s>>>(); break;
+    case 11: recsys_unit_bags_backward_end<<<1, 1, 0, s>>>(); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -10,7 +10,8 @@ of plain functions bound to a config.
 - ``state``: non-trainable tree (batch-norm moving stats).
 - ``batch``: {'ids': int64 [B, F] field-local ids,
               'dense': float32 [B, 13] log-scaled continuous values} for
-  the Criteo models; DIN's is in ``models/din.py``.
+  the Criteo models; DIN's is in ``models/din.py``, DLRM's multi-hot bags
+  in ``models/dlrm.py``.
 - ``logits``: float32 [B].
 - ``meta``: static facts other modules need (DIN's ``sample_features``,
   the serving warm-up's request generator; the Criteo models' ``engine``,
@@ -80,6 +81,7 @@ def make_model(name: str, *args, **kwargs) -> Model:
         # import model modules lazily so registration happens on demand
         import recsys_tpu_torch.models.ctr  # noqa: F401
         import recsys_tpu_torch.models.din  # noqa: F401
+        import recsys_tpu_torch.models.dlrm  # noqa: F401
     if name not in _REGISTRY:
         raise ValueError(f"model {name!r} is not ported; have "
                          f"{sorted(_REGISTRY)}")

@@ -18,12 +18,12 @@ padding, masked in the attention.
 - top MLP (100, 50, 20) over concat(item_emb, item_att, cate_att), no batch
   norm, then a dense layer to one logit.
 
-In train mode the two attention units are bounded by marks
-(`profiling.UNIT_MARKS`): ``attention_forward`` before the first unit's
-input, ``attention_forward_end`` after the second unit's output, and in the
-backward ``attention_backward`` once the units' output gradients have come,
-``attention_backward_end`` once their input gradients have; a captured step
-launches them, an eager one none. ``meta['attention_counter']`` (a
+In train mode the two attention units are bounded by the marks of
+``profiling.UNITS['attention']``: ``attention_forward`` before the first
+unit's input, ``attention_forward_end`` after the second unit's output, and
+in the backward ``attention_backward`` once the units' output gradients have
+come, ``attention_backward_end`` once their input gradients have; a captured
+step launches them, an eager one none. ``meta['attention_counter']`` (a
 `profiling.DeviceCounter` of `interactions.ATTENTION_COUNTS`) sums both
 units' rows and real history positions on the device;
 ``meta['backward_tiles']`` (of `interactions.BACKWARD_TILE_COUNTS`) the

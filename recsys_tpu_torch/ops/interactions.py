@@ -1,6 +1,7 @@
 """Interaction ops (counterpart of ``recsys_tpu/ops/interactions.py``):
-the FM pairwise term from field sums, DCN's cross layers, CIN, and DIN's
-target attention.
+the FM pairwise term from field sums, DCN's cross layers, DCN-v2's low-rank
+cross layers (DLRM's interaction, which the JAX package has not), CIN, and
+DIN's target attention.
 
 Shapes use B=batch, F=num fields, D=embedding dim, H=CIN feature maps,
 P=padded history length, K=DIN embedding dim.
@@ -41,6 +42,35 @@ def cross_apply(params, x0: torch.Tensor) -> torch.Tensor:
     for layer in params:
         xw = xl @ layer["w"]                                  # [B]
         xl = xw[:, None] * x0 + xl + layer["b"]
+    return xl
+
+
+# ---------------------------------------------------------------------------
+# DCN-v2 low-rank cross layers (arXiv:2008.13535 §3.2; DLRM-DCNv2's
+# interaction)
+# ---------------------------------------------------------------------------
+
+def lowrank_cross_init(gen: torch.Generator, dim: int, rank: int,
+                       num_layers: int, device,
+                       dtype=torch.float32) -> list[dict]:
+    """Per layer ``v`` [dim, rank] (a bias-free ``torch.nn.Linear`` from dim
+    to rank), ``w`` [rank, dim] and ``b`` [dim] (one from rank to dim), each
+    at ``torch.nn.Linear``'s default init (`nn.linear_init`)."""
+    layers = []
+    for _ in range(num_layers):
+        v = nn.linear_init(gen, dim, rank, device, bias=False, dtype=dtype)
+        layers.append({"v": v["w"],
+                       **nn.linear_init(gen, rank, dim, device, dtype=dtype)})
+    return layers
+
+
+def lowrank_cross_apply(params, x0: torch.Tensor) -> torch.Tensor:
+    """x_{l+1} = x0 ⊙ (W_l (V_l x_l) + b_l) + x_l over [B, dim], from x_0 =
+    x0: two cuBLAS products a layer (dim → rank → dim), their float32
+    operands as given, then the elementwise rest."""
+    xl = x0
+    for layer in params:
+        xl = x0 * nn.dense(layer, xl @ layer["v"]) + xl
     return xl
 
 

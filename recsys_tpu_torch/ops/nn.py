@@ -89,6 +89,30 @@ def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, device,
     }
 
 
+def linear_init(gen: torch.Generator, in_dim: int, out_dim: int, device,
+                bias: bool = True, dtype=torch.float32) -> Params:
+    """``torch.nn.Linear``'s default init in the ``[in, out]`` layout:
+    kernel and bias U(±1/√in_dim) (DLRM's layers); without ``bias`` the
+    kernel alone, ``{'w'}``."""
+    limit = in_dim ** -0.5
+    shapes = {"w": (in_dim, out_dim), "b": (out_dim,)} if bias else \
+        {"w": (in_dim, out_dim)}
+    return {k: _host_empty(shape, device, dtype).uniform_(
+                -limit, limit, generator=gen).to(device)
+            for k, shape in shapes.items()}
+
+
+def linear_mlp_init(gen: torch.Generator, in_dim: int,
+                    layer_dims: tuple[int, ...], device,
+                    dtype=torch.float32) -> Params:
+    """`mlp_init`'s tree, without batch norm, of `linear_init` layers."""
+    layers, d = [], in_dim
+    for h in layer_dims:
+        layers.append({"dense": linear_init(gen, d, h, device, dtype=dtype)})
+        d = h
+    return {"layers": layers}
+
+
 def dense(params: Params, x, activation=None) -> torch.Tensor:
     """``x @ w + b``. ``x`` may be a list/tuple of [B, d_i] pieces with
     Σd_i = in_dim: each piece meets its row slice of ``w`` and the partial

@@ -17,11 +17,31 @@ CUDA graph. Every touched row is written once, without atomics, so two
 calls give bitwise-equal results; untouched rows are zero, and an id
 outside ``[0, num_rows)`` adds nothing. For CPU tensors the wrapper takes
 the plain version, ``index_add_`` into zeros (which raises on such an id).
+
+The sparse mode gives the same sums without the dense table, for a table
+far larger than a step's ids (DLRM's):
+
+    segment_sum_sparse(ids [N], grads [M, W], num_rows, grad_rows [N])
+        -> SparseRows(ids [N] int64, rows [N, W] float32, count [] int64)
+
+the distinct ids in ``[0, num_rows)`` in ascending order, then
+``num_rows`` at every place from the count on; each distinct id's summed
+row at its place; and their count, a device scalar that is never read back,
+so the call captures into a CUDA graph. ``grad_rows`` (int32 [N]) names
+each id's row of ``grads``: a bag pooled into one row hands that row's
+gradient to each of its ids, and the kernel reads it in place of a
+broadcast copy. On the card it is one call into the same
+source (its sort and sums, and a scan that numbers the distinct ids); the
+rows past the count are not written there. Each distinct row is summed in
+the ids' order, as the dense mode sums it, so the two give the same bits.
+The plain version (CPU) is ``torch.unique`` and ``index_add_``, the rows
+past the count zero.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -33,14 +53,28 @@ SOURCE = cuda_build.source(
     "segment_sum.cu",
     segment_sum=[P, P, P, P, ctypes.c_ulonglong, LL, I, LL, I, P],
     segment_sum_workspace_bytes=[LL, I, I,
-                                 ctypes.POINTER(ctypes.c_ulonglong)])
+                                 ctypes.POINTER(ctypes.c_ulonglong)],
+    segment_sum_sparse=[P, P, P, P, P, P, P, ctypes.c_ulonglong, LL, I, LL,
+                        I, P],
+    segment_sum_sparse_workspace_bytes=[LL, I, I,
+                                        ctypes.POINTER(ctypes.c_ulonglong)])
 #: The kernel's int32 limits: at most MAX_IDS ids, at most MAX_ROWS rows
 #: (the out-of-range sentinel is ``num_rows`` itself).
 MAX_IDS = 2 ** 31 - 1
 MAX_ROWS = 2 ** 31 - 2
 
-#: workspace bytes by (n, w, end_bit)
-_workspace: dict[tuple[int, int, int], int] = {}
+#: workspace bytes by (entry point, n, w, end_bit)
+_workspace: dict[tuple[str, int, int, int], int] = {}
+
+
+class SparseRows(NamedTuple):
+    """A table's gradient on the rows a step touched (`segment_sum_sparse`):
+    the first ``count`` places of ``ids`` and ``rows`` hold the distinct
+    rows, ascending, and their summed gradients."""
+
+    ids: torch.Tensor     # [N] int64; the table's row count past ``count``
+    rows: torch.Tensor    # [N, W] float32
+    count: torch.Tensor   # [] int64, on the device
 
 
 def key_bits(num_rows: int) -> int:
@@ -79,15 +113,15 @@ def _check(ids: torch.Tensor, grads: torch.Tensor, num_rows: int) -> None:
                          f"{MAX_ROWS} rows (32-bit keys and positions)")
 
 
-def _workspace_bytes(n: int, w: int, end_bit: int) -> int:
-    key = (n, w, end_bit)
+def _workspace_bytes(n: int, w: int, end_bit: int,
+                     entry: str = "segment_sum_workspace_bytes") -> int:
+    key = (entry, n, w, end_bit)
     size = _workspace.get(key)
     if size is None:
         lib = cuda_build.load(SOURCE)
         out = ctypes.c_ulonglong()
-        err = lib.segment_sum_workspace_bytes(n, w, end_bit,
-                                              ctypes.byref(out))
-        cuda_build.check(lib, err, "segment_sum_workspace_bytes")
+        err = getattr(lib, entry)(n, w, end_bit, ctypes.byref(out))
+        cuda_build.check(lib, err, entry)
         size = _workspace[key] = out.value
     return size
 
@@ -113,4 +147,77 @@ def segment_sum(ids: torch.Tensor, grads: torch.Tensor,
     cuda_build.launch(SOURCE, "segment_sum", ids.device, ids.data_ptr(),
                       grads.data_ptr(), out.data_ptr(), ws.data_ptr(),
                       ws.numel(), n, w, num_rows, end_bit, n=1 if n else 0)
+    return out
+
+
+def _check_sparse(ids: torch.Tensor, grads: torch.Tensor, num_rows: int,
+                  grad_rows: torch.Tensor) -> None:
+    if grads.dim() != 2 or not grads.is_contiguous() \
+            or grads.dtype != torch.float32 or grads.device != ids.device:
+        raise ValueError(f"segment_sum_sparse: want contiguous float32 grads "
+                         f"[M, W] on {ids.device}, got {grads.dtype} "
+                         f"{tuple(grads.shape)} on {grads.device}")
+    _check(ids, grads.new_empty((ids.shape[0], grads.shape[1])), num_rows)
+    if (grad_rows.shape != ids.shape or grad_rows.dtype != torch.int32
+            or not grad_rows.is_contiguous()
+            or grad_rows.device != ids.device):
+        raise ValueError(f"segment_sum_sparse: want contiguous int32 "
+                         f"grad_rows [{ids.shape[0]}] on {ids.device}, got "
+                         f"{grad_rows.dtype} {tuple(grad_rows.shape)} on "
+                         f"{grad_rows.device}")
+
+
+def segment_sum_sparse_reference(ids: torch.Tensor, grads: torch.Tensor,
+                                 num_rows: int, grad_rows: torch.Tensor
+                                 ) -> SparseRows:
+    """The plain version of the sparse mode: ``torch.unique`` of the ids in
+    range and ``index_add_`` of their gradient rows, in the ids' order,
+    into zeros."""
+    n = ids.shape[0]
+    src = grads[grad_rows.long()]
+    keep = (ids >= 0) & (ids < num_rows)
+    distinct, inverse = torch.unique(ids[keep], sorted=True,
+                                     return_inverse=True)
+    count = distinct.shape[0]
+    out_ids = torch.full((n,), num_rows, dtype=torch.int64,
+                         device=ids.device)
+    out_ids[:count] = distinct
+    rows = torch.zeros((n, grads.shape[1]), dtype=torch.float32,
+                       device=grads.device)
+    rows.index_add_(0, inverse, src[keep].float())
+    return SparseRows(out_ids, rows, torch.tensor(count, dtype=torch.int64,
+                                                  device=ids.device))
+
+
+def segment_sum_sparse(ids: torch.Tensor, grads: torch.Tensor, num_rows: int,
+                       grad_rows: torch.Tensor) -> SparseRows:
+    """The summed gradient of each distinct id → `SparseRows`, never a
+    buffer of ``num_rows`` rows. ``grads`` is [M, W] float32, and id i
+    takes its row ``grad_rows[i]`` (int32 [N], each in ``[0, M)``).
+
+    CUDA tensors go through the kernel (one launch counted under
+    ``segment_sum``); the call raises if it cannot launch. CPU tensors go
+    through `segment_sum_sparse_reference`. An id outside
+    ``[0, num_rows)`` adds nothing."""
+    _check_sparse(ids, grads, num_rows, grad_rows)
+    if ids.device.type == "cpu":
+        return segment_sum_sparse_reference(ids, grads, num_rows, grad_rows)
+    if ids.device.type != "cuda":
+        raise ValueError(f"segment_sum_sparse: no kernel for device "
+                         f"{ids.device}")
+    n, w = ids.shape[0], grads.shape[1]
+    end_bit = key_bits(num_rows)
+    out = SparseRows(
+        torch.empty((n,), dtype=torch.int64, device=ids.device),
+        torch.empty((n, w), dtype=torch.float32, device=ids.device),
+        torch.empty((), dtype=torch.int64, device=ids.device))
+    ws = torch.empty((_workspace_bytes(
+        n, w, end_bit, "segment_sum_sparse_workspace_bytes"),),
+        dtype=torch.uint8, device=ids.device)
+    cuda_build.launch(SOURCE, "segment_sum_sparse", ids.device,
+                      ids.data_ptr(), grads.data_ptr(), grad_rows.data_ptr(),
+                      out.ids.data_ptr(), out.rows.data_ptr(),
+                      out.count.data_ptr(), ws.data_ptr(), ws.numel(), n, w,
+                      num_rows, end_bit, counter="segment_sum",
+                      n=1 if n else 0)
     return out

@@ -1,6 +1,7 @@
 """Optimizers over parameter trees (counterpart of
-``recsys_tpu/train/optim.py``): TF-parity Adam and FTRL-proximal, both
-updating in place, and `for_model`, the optimizer a model declares.
+``recsys_tpu/train/optim.py``): TF-parity Adam, FTRL-proximal and Adagrad
+with row-wise accumulators on sparse tables, all updating in place, and
+`for_model`, the optimizer a model declares.
 
 ``tf.train.AdamOptimizer`` keeps a single ε outside the bias correction:
 
@@ -21,6 +22,12 @@ step it replays and never the host.
 The states ``AdamState(count, mu, nu)`` and ``FtrlState(z, n)`` mirror the
 JAX ones (their trees are shaped like the parameters), so checkpoints and
 the converter see the same structure.
+
+`rowwise_adagrad` (DLRM's, which the JAX package has not) updates a table
+whose gradient is sparse (`segment_sum.SparseRows`) over its touched rows
+only, one accumulator a row; the other leaves take elementwise Adagrad.
+Row-wise Adagrad leaves a row with a zero gradient exactly as it was, so
+the sparse update is the dense one, row for row.
 """
 
 from __future__ import annotations
@@ -32,6 +39,9 @@ import torch
 
 from recsys_tpu_torch.core import tree as tree_util
 from recsys_tpu_torch.ops.adam_update import adam_update
+from recsys_tpu_torch.ops.rowwise_adagrad import rowwise_adagrad as \
+    rowwise_update
+from recsys_tpu_torch.ops.segment_sum import SparseRows
 
 
 class Optimizer(NamedTuple):
@@ -142,11 +152,66 @@ def ftrl(alpha: float = 0.1, beta: float = 1.0, l1: float = 1.0,
     return Optimizer(init, update)
 
 
+class AdagradState(NamedTuple):
+    acc: Any   # per-weight sums of squared gradients; per row on a table
+
+
+def rowwise_adagrad(learning_rate: float, rowwise: tuple[str, ...] = (),
+                    eps: float = 1e-8) -> Optimizer:
+    """Adagrad with a constant learning rate and accumulators starting at 0.
+    The top-level leaves named in ``rowwise`` are tables [V, W] with one
+    accumulator a row, updated from their sparse gradient by
+    `ops.rowwise_adagrad.rowwise_adagrad`:
+
+        a_r ← a_r + mean(g_r²),   w_r ← w_r − lr·g_r / (√a_r + ε)
+
+    one CUDA launch a table over the touched rows on the card. Every other
+    leaf takes elementwise Adagrad, ``a ← a + g²``, ``p ← p − lr·g / (√a +
+    ε)``, in that order of operations, as PyTorch's multi-tensor operations
+    over all of them. ``update`` works IN PLACE, under
+    ``torch.no_grad()``, like `adam`."""
+
+    def init(params) -> AdagradState:
+        return AdagradState(acc={
+            k: (torch.zeros(v.shape[:1], dtype=v.dtype, device=v.device)
+                if k in rowwise else tree_util.tree_map(torch.zeros_like, v))
+            for k, v in params.items()})
+
+    @torch.no_grad()
+    def update(grads, state: AdagradState, params):
+        dense_p, dense_g, dense_a = [], [], []
+        for k in sorted(params):
+            if k in rowwise:
+                if not isinstance(grads[k], SparseRows):
+                    raise TypeError(f"rowwise_adagrad: the table {k!r} "
+                                    "wants a sparse gradient")
+                rowwise_update(params[k], state.acc[k], grads[k],
+                               learning_rate, eps)
+                continue
+            dense_p += tree_util.leaves(params[k])
+            dense_g += tree_util.leaves(grads[k])
+            dense_a += tree_util.leaves(state.acc[k])
+        if dense_p:
+            torch._foreach_addcmul_(dense_a, dense_g, dense_g)
+            den = torch._foreach_sqrt(dense_a)
+            torch._foreach_add_(den, eps)
+            step = torch._foreach_mul(dense_g, learning_rate)
+            torch._foreach_div_(step, den)
+            torch._foreach_sub_(dense_p, step)
+        return params, state
+
+    return Optimizer(init, update)
+
+
 def for_model(model_meta: dict, learning_rate: float) -> Optimizer:
     """The optimizer a model declares in ``Model.meta['optimizer']``: FTRL
     for the wide model (the reference's LinearClassifier is FTRL-backed,
-    with TF's default l1 = l2 = 0: ``alpha=learning_rate``), TF-parity
+    with TF's default l1 = l2 = 0: ``alpha=learning_rate``), row-wise
+    Adagrad for DLRM (its tables ``meta['sparse_tables']``), TF-parity
     Adam otherwise."""
     if model_meta.get("optimizer") == "ftrl":
         return ftrl(alpha=learning_rate, l1=0.0, l2=0.0)
+    if model_meta.get("optimizer") == "rowwise_adagrad":
+        return rowwise_adagrad(learning_rate,
+                               tuple(model_meta.get("sparse_tables", ())))
     return adam(learning_rate)

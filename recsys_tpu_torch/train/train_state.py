@@ -5,7 +5,11 @@ One train step is the model's forward in train mode, the mean sigmoid
 cross-entropy, ``torch.autograd.grad`` over every parameter (the embedding
 tables' gradients come from `table.table_gather`'s backward, the segment-sum
 kernel on the card), and the in-place update of the optimizer the model
-declares (`optim.for_model`: TF-parity Adam, FTRL for the wide model). Parameters are plain tensors that do not require grad between
+declares (`optim.for_model`: TF-parity Adam, FTRL for the wide model,
+row-wise Adagrad for DLRM). A table the model names in
+``meta['sparse_tables']`` is read as a `table.SparseTable`: its gradient is
+the touched rows' (`segment_sum.SparseRows`), never a dense one of the
+table's size. Parameters are plain tensors that do not require grad between
 steps: each step differentiates through detached aliases of them, so eval
 and serving never build a graph. Captured into a CUDA graph, the step
 launches the marks ``forward``, ``backward``, ``optimizer`` and ``end`` at
@@ -20,6 +24,7 @@ from typing import Any, NamedTuple
 import torch
 
 from recsys_tpu_torch.core import tree as tree_util
+from recsys_tpu_torch.embeddings import table as emb_table
 from recsys_tpu_torch.models.api import Model
 from recsys_tpu_torch.train import metrics as M
 from recsys_tpu_torch.train import optim
@@ -100,17 +105,32 @@ def loss_and_grads(model: Model, params, model_state, batch,
     """(loss, new model state, gradient tree) of the train-mode loss, the
     gradients shaped like ``params`` (zeros for unused leaves, as
     ``jax.grad`` gives). Differentiates through detached aliases, so
-    ``params`` need not (and should not) require grad."""
-    live = [p.detach().requires_grad_() for p in tree_util.leaves(params)]
+    ``params`` need not (and should not) require grad. The top-level
+    leaves of ``params`` named in ``model.meta['sparse_tables']`` are read
+    as `table.SparseTable` objects, and their gradients are
+    `segment_sum.SparseRows`."""
+    sparse = tuple(model.meta.get("sparse_tables", ()))
+    tables = {k: emb_table.SparseTable(params[k]) for k in sparse}
+    dense = ({k: v for k, v in params.items() if k not in tables}
+             if tables else params)
+    live = [p.detach().requires_grad_() for p in tree_util.leaves(dense)]
     profiling.mark("forward", live[0])
-    logits, new_ms = model.apply(tree_util.fill_like(params, live),
+    view = tree_util.fill_like(dense, live)
+    logits, new_ms = model.apply({**view, **tables} if tables else view,
                                  model_state, batch, train=True, gen=gen)
     loss = sigmoid_ce(logits, batch["label"])
     profiling.mark("backward", loss)
-    grads = torch.autograd.grad(loss, live, allow_unused=True,
-                                materialize_grads=True)
+    grads = torch.autograd.grad(
+        loss, live + [t.token for t in tables.values()], allow_unused=True,
+        materialize_grads=True)
+    grad_tree = tree_util.fill_like(dense, grads[:len(live)])
+    for k, t in tables.items():
+        if t.grad is None:
+            raise RuntimeError(f"loss_and_grads: the sparse table {k!r} "
+                               "was not read by a bag")
+        grad_tree[k] = t.grad
     return (loss.detach(), tree_util.tree_map(torch.Tensor.detach, new_ms),
-            tree_util.fill_like(params, grads))
+            grad_tree)
 
 
 def make_train_step(model: Model, tx: optim.Optimizer):

@@ -23,11 +23,12 @@ The training path records into whatever profiler is on:
   trace the marks cut each replayed step into its input, forward, backward
   and optimizer sections, which no host code can do. An eager step
   launches none. The bounds of a model's unit inside those sections,
-  `UNIT_MARKS`, are marks too (DIN's attention units, forward and
-  backward; `backward_mark` places one in the backward);
+  `UNIT_MARKS`, are marks too (DIN's attention units, DLRM's cross stack
+  and bags, forward and backward; `backward_mark` places one in the
+  backward);
 - `DeviceCounter`: counts a captured step adds up on the card (DIN's
-  attention rows and real history positions), read by the host once a
-  call and never inside one.
+  attention rows and real history positions, DLRM's ids and touched
+  rows), read by the host once a call and never inside one.
 """
 
 from __future__ import annotations
@@ -46,11 +47,16 @@ from recsys_tpu_torch.ops.cuda_build import I, P
 #: the section boundaries of a training step, in order; mark ``m`` is the
 #: kernel ``recsys_mark_<m>``
 MARKS = ("begin", "forward", "backward", "optimizer", "end")
-#: the bounds of a unit of a model inside a step's sections; mark ``u`` is
-#: the kernel ``recsys_unit_<u>``, a name outside ``recsys_mark_``, so that
-#: a trace's split of a replay by `MARKS` passes over it
-UNIT_MARKS = ("attention_forward", "attention_forward_end",
-              "attention_backward", "attention_backward_end")
+#: the four bounds of each unit of a model inside a step's sections, by
+#: unit: DIN's attention units, DLRM's low-rank cross stack and its
+#: embedding bags
+UNITS = {unit: tuple(f"{unit}_{side}" for side in (
+             "forward", "forward_end", "backward", "backward_end"))
+         for unit in ("attention", "cross", "bags")}
+#: every unit's bounds; mark ``u`` is the kernel ``recsys_unit_<u>``, a name
+#: outside ``recsys_mark_``, so that a trace's split of a replay by `MARKS`
+#: passes over it
+UNIT_MARKS = tuple(m for marks in UNITS.values() for m in marks)
 #: a mark's launch counts under ``mark`` (`cuda_build.launches`)
 MARK_SOURCE = cuda_build.source("step_marks.cu", recsys_mark=[I, P],
                                 recsys_unit_mark=[I, P])

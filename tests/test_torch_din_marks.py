@@ -81,7 +81,7 @@ def test_a_din_step_marks_its_attention_units_in_order(monkeypatch):
         _din(), tx, data["label"].shape[0], 32)
     steps(ts, data, 2, 0)
     assert called == DIN_MARKS * 2
-    assert set(profiling.UNIT_MARKS) <= set(called)
+    assert set(profiling.UNITS["attention"]) <= set(called)
 
 
 def test_a_criteo_step_calls_no_unit_mark(monkeypatch):

@@ -1819,3 +1819,149 @@ def test_graphed_adam_launch_counts_are_one_a_step(cuda_device, name,
             torch.cuda.synchronize()
         assert (n["adam_update"], n["adam_update.leaves"]) == (
             k * (n_leaves > 0), k * n_leaves)
+
+
+# ---------------------------------------------------------------------------
+# the segment sum's sparse mode and DLRM's graphed step
+# ---------------------------------------------------------------------------
+
+def _identity_rows(ids):
+    """The map that gives id i gradient row i."""
+    return torch.arange(ids.shape[0], dtype=torch.int32, device=ids.device)
+
+
+def _assert_sparse_matches(got, ids, g, v, grad_rows=None, atol=1e-4):
+    """The kernel's `SparseRows` against the plain version: the same
+    distinct ids, count and sentinel places bitwise; the sums within the
+    plain version's tolerance (another order of float32 adds; ``atol``
+    1e-3 for a run of 20,000 adds, as the dense mode's edge cases take)."""
+    if grad_rows is None:
+        grad_rows = _identity_rows(ids)
+    ref = ss.segment_sum_sparse_reference(ids.cpu(), g.cpu(), v,
+                                          grad_rows.cpu())
+    count = int(got.count)
+    assert count == int(ref.count)
+    assert torch.equal(got.ids.cpu(), ref.ids)
+    torch.testing.assert_close(got.rows[:count].cpu(), ref.rows[:count],
+                               rtol=1e-5, atol=atol)
+
+
+@pytest.mark.parametrize("w", [1, 8, 17, 33, 128])
+@pytest.mark.parametrize("n", [1, 127, 5000, 70_001])
+def test_segment_sum_sparse_kernel_matches_plain_version(cuda_device, w, n):
+    gen = torch.Generator().manual_seed(w * 1000 + n)
+    v = 30_000
+    ids = _zipf_ids(n, v, gen).to(cuda_device)
+    g = torch.randn(n, w, generator=gen).to(cuda_device)
+    before = _count("segment_sum")
+    got = ss.segment_sum_sparse(ids, g, v, _identity_rows(ids))
+    torch.cuda.synchronize()
+    assert _count("segment_sum") == before + 1
+    _assert_sparse_matches(got, ids, g, v)
+    again = ss.segment_sum_sparse(ids, g, v, _identity_rows(ids))
+    count = int(got.count)
+    assert torch.equal(got.rows[:count], again.rows[:count])   # bitwise
+
+
+def test_segment_sum_sparse_kernel_edge_cases(cuda_device):
+    """N = 0 (a count of 0, no launch), all-equal ids (one run across every
+    chunk), ids out of range (dropped, the sentinel past the count) and a
+    bag map: each id takes the pooled row it names, and the sums equal the
+    broadcast rows' bitwise."""
+    none = torch.zeros((0,), dtype=torch.int64, device=cuda_device)
+    empty = ss.segment_sum_sparse(none, torch.zeros((0, 8),
+                                  device=cuda_device), 10,
+                                  _identity_rows(none))
+    assert int(empty.count) == 0 and empty.rows.shape == (0, 8)
+    g = torch.randn(20_000, 17, device=cuda_device)
+    same = torch.full((20_000,), 9, dtype=torch.int64, device=cuda_device)
+    _assert_sparse_matches(ss.segment_sum_sparse(same, g, 10,
+                                                 _identity_rows(same)),
+                           same, g, 10, atol=1e-3)
+    gen = torch.Generator().manual_seed(7)
+    ids = torch.randint(-50, 1050, (20_000,), generator=gen)
+    ids[::7] = 2 ** 40
+    ids = ids.to(cuda_device)
+    got = ss.segment_sum_sparse(ids, g, 1000, _identity_rows(ids))
+    _assert_sparse_matches(got, ids, g, 1000)
+    assert int(got.ids[int(got.count)]) == 1000
+    b, bags = 300, (3, 1, 100, 2)
+    field = torch.repeat_interleave(torch.arange(4), torch.tensor(bags))
+    rows = (torch.arange(b)[:, None] * 4 + field[None, :]).reshape(-1)
+    bag_ids = torch.randint(0, 500, (b * sum(bags),), generator=gen).to(
+        cuda_device)
+    pooled = torch.randn(b * 4, 128, device=cuda_device)
+    grad_rows = rows.to(torch.int32).to(cuda_device)
+    mapped = ss.segment_sum_sparse(bag_ids, pooled, 500, grad_rows)
+    _assert_sparse_matches(mapped, bag_ids, pooled, 500, grad_rows)
+    broadcast = ss.segment_sum_sparse(bag_ids, pooled[grad_rows.long()],
+                                      500, _identity_rows(bag_ids))
+    count = int(mapped.count)
+    assert torch.equal(mapped.ids, broadcast.ids)
+    assert torch.equal(mapped.rows[:count], broadcast.rows[:count])
+
+
+def _dlrm_config():
+    """A DLRM of the cell's widths with each table cut to at most 1M rows
+    (6,500,127 rows, a 3.33 GB table): dim 128, rank 512, the cell's MLPs
+    and bags."""
+    import json
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "benchmark", "configs",
+                           "dlrm-dcnv2-criteo1tb.json")) as f:
+        config = json.load(f)
+    config["num_embeddings_per_feature"] = [
+        min(v, 1_000_000) for v in config["num_embeddings_per_feature"]]
+    return config
+
+
+def test_dlrm_graphed_step_equals_the_eager_one_and_writes_no_table(
+        cuda_device):
+    """Three DLRM steps at batch 1,024 through the graphed K-step call and
+    through the same body run eagerly, from the same weights: the losses,
+    every parameter and every accumulator agree bitwise; rows no step
+    touched are bitwise unchanged; the graph's capture and its replays
+    allocate nothing near the table's size (a dense gradient would be one
+    more table); and each step launched the sparse segment sum once and
+    row-wise Adagrad once."""
+    from benchmark import dlrm_data, port_dlrm
+    from benchmark.kinds import devgen_dlrm_train as kind
+
+    config = _dlrm_config()
+    traffic = {"rows": 20_000, "batch": 1024, "id_skew": 2.2,
+               "planted": {"bias": -1.2, "effect_scale": 0.35,
+                           "dense_scale": 0.15, "interaction_rank": 4,
+                           "interaction_scale": 0.14}}
+    port_dlrm.build_kernels()
+    data = dlrm_data.make_dataset(config, traffic, 5, cuda_device)
+    states, losses = [], []
+    for graphed in (True, False):
+        m = port_dlrm.model(config)
+        ts, tx = port_dlrm.train_state(
+            m, config, kind.weights(config, 5, cuda_device), 5, cuda_device)
+        table_bytes = ts.params["table"].numel() * 4
+        steps = fast.make_scanned_train_step_devgen(
+            m, tx, 20_000, 1024, graphed=graphed)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(cuda_device)
+        torch.cuda.reset_peak_memory_stats(cuda_device)
+        with cuda_build.counting() as n:
+            ts, loss = steps(ts, data, 3, 0)
+            torch.cuda.synchronize()
+        assert n["segment_sum"] == 3 and n["rowwise_adagrad"] == 3
+        assert torch.cuda.max_memory_allocated(cuda_device) - before \
+            < table_bytes / 4
+        states.append(ts)
+        losses.append(loss)
+    assert torch.equal(losses[0], losses[1])
+    _assert_leaves_equal([tree_util.leaves(states[0].params),
+                          tree_util.leaves(states[0].opt_state.acc)],
+                         [tree_util.leaves(states[1].params),
+                          tree_util.leaves(states[1].opt_state.acc)])
+    start = kind.weights(config, 5, cuda_device)["table"]
+    untouched = states[0].opt_state.acc["table"] == 0
+    assert untouched.any() and not untouched.all()
+    assert torch.equal(states[0].params["table"][untouched],
+                       start[untouched])

@@ -8,6 +8,12 @@ tests/test_pallas_kernels.py runs them. Tolerance 1e-5 absolute and
 relative, as there: float32 sums of the same terms in another order (the
 Pallas kernels sum by one-hot matmuls).
 
+The sparse mode's plain version (`segment_sum_sparse` on the CPU) against
+the dense sum: the distinct ids ascending, then the sentinel; each one's
+summed row exactly the dense row (the same adds in the same order); an
+empty batch, all-duplicate ids, ids out of range and a bag map (each id
+taking a pooled row) included.
+
 The CUDA kernel runs only on a card: tests/test_torch_gpu.py compares it
 with the plain version there.
 """
@@ -122,3 +128,83 @@ def test_segment_sum_rejects_what_32_bit_keys_cannot_hold(n, rows):
     g = torch.empty(n, 1, dtype=torch.float32, device="meta")
     with pytest.raises(ValueError, match="32-bit keys"):
         ss.segment_sum(ids, g, rows)
+
+
+def _identity(ids):
+    """The map that gives id i gradient row i."""
+    return torch.arange(ids.shape[0], dtype=torch.int32, device=ids.device)
+
+
+def _sparse_against_dense(ids, g, v, grad_rows=None):
+    if grad_rows is None:
+        grad_rows = _identity(ids)
+    got = ss.segment_sum_sparse(ids, g, v, grad_rows)
+    src = g[grad_rows.long()]
+    keep = (ids >= 0) & (ids < v)
+    dense = ss.segment_sum_reference(ids[keep], src[keep], v)
+    count = int(got.count)
+    n = ids.shape[0]
+    assert got.ids.shape == (n,) and got.rows.shape == (n, g.shape[1])
+    assert torch.equal(got.ids[:count], torch.unique(ids[keep]))
+    assert bool((got.ids[count:] == v).all())
+    assert torch.equal(got.rows[:count], dense[got.ids[:count]])
+    return got
+
+
+@pytest.mark.parametrize("n,w,v", [
+    (1000, 17, 2048),      # ragged, duplicates
+    (64, 128, 100_000),    # N << V: every id distinct, DLRM's width
+    (4096, 8, 16),         # N >> V: long runs
+    (1, 3, 5),
+])
+def test_sparse_mode_gives_the_dense_rows_of_the_distinct_ids(n, w, v):
+    gen = torch.Generator().manual_seed(n + w)
+    ids = (v * torch.rand(n, generator=gen) ** 2.2).long().clamp_(max=v - 1)
+    _sparse_against_dense(ids, torch.randn(n, w, generator=gen), v)
+
+
+def test_sparse_mode_of_an_empty_batch_and_of_one_repeated_id():
+    empty = _sparse_against_dense(torch.zeros(0, dtype=torch.int64),
+                                  torch.zeros(0, 4), 10)
+    assert int(empty.count) == 0
+    same = _sparse_against_dense(torch.full((500,), 7), torch.randn(500, 4),
+                                 10)
+    assert int(same.count) == 1 and int(same.ids[0]) == 7
+    assert bool((same.ids[1:] == 10).all())
+
+
+def test_sparse_mode_drops_ids_out_of_range():
+    gen = torch.Generator().manual_seed(3)
+    ids = torch.randint(-20, 120, (800,), generator=gen)
+    got = _sparse_against_dense(ids, torch.randn(800, 5, generator=gen), 100)
+    assert int(got.count) == int(torch.unique(ids[(ids >= 0)
+                                                  & (ids < 100)]).numel())
+
+
+def test_sparse_mode_with_a_bag_map_equals_the_broadcast_gradient():
+    """Each id of a bag takes its pooled row's gradient: with the map the
+    sums are those of the broadcast rows, bitwise."""
+    gen = torch.Generator().manual_seed(4)
+    b, bags = 50, (3, 1, 5, 2)
+    field = torch.repeat_interleave(torch.arange(4), torch.tensor(bags))
+    rows = (torch.arange(b)[:, None] * 4 + field[None, :]).reshape(-1)
+    ids = torch.randint(0, 40, (b * sum(bags),), generator=gen)
+    pooled = torch.randn(b * 4, 8, generator=gen)
+    mapped = _sparse_against_dense(ids, pooled, 40, rows.to(torch.int32))
+    broadcast = ss.segment_sum_sparse(ids, pooled[rows], 40, _identity(ids))
+    assert torch.equal(mapped.ids, broadcast.ids)
+    assert torch.equal(mapped.rows, broadcast.rows)
+
+
+@pytest.mark.parametrize("bad", ["map_dtype", "map_shape", "grads_dtype"])
+def test_sparse_mode_rejects_what_the_kernel_does_not_take(bad):
+    ids, g = torch.tensor([0, 1, 1]), torch.ones(2, 4)
+    rows = torch.tensor([0, 1, 1], dtype=torch.int32)
+    if bad == "map_dtype":
+        rows = rows.long()
+    elif bad == "map_shape":
+        rows = rows[:2]
+    else:
+        g = g.double()
+    with pytest.raises((TypeError, ValueError)):
+        ss.segment_sum_sparse(ids, g, 2, rows)
